@@ -1,0 +1,295 @@
+"""Banded Schur solver driven by the fused evaluate+assemble kernel.
+
+Counterpart of ``rsba_tpu/solver/banded_tpu.py``.  ``prepare`` runs the
+fused kernel (``kernels/fused.py``: the CUDA kernel on CUDA tensors, its
+plain PyTorch version otherwise), folds its window sums into poses and
+applies Jacobi scaling; ``solve_step`` works on the kernel's planes
+layout, where per-point quantities carry the point axis G last:
+
+    g_pt (NR, 3, G),  C (NR, 6, G) packed symmetric,  F (NR, W, 18, G)
+
+Internal parameter layout: points as (NR, 3, G) planes.  The pairwise
+cost decrease always differences two passes of the same plain residual
+path (``banded.residuals_raw``), never the kernel against it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..geometry import quaternion as quat
+from ..kernels import fused
+from ..problem.types import POSE_DOF, Params, Problem
+from . import banded
+from .options import SolverOptions
+from .pcg import pcg
+from .schur import _lm_scaled_damp
+from .window import WindowPlan
+
+C6_DIAG = list(fused.C6_DIAG)
+C6_PAIRS = fused.C6_PAIRS
+
+#: packed symmetric component index for (x, y) pairs
+_C6_AT = {(0, 0): 0, (0, 1): 1, (1, 0): 1, (0, 2): 2, (2, 0): 2,
+          (1, 1): 3, (1, 2): 4, (2, 1): 4, (2, 2): 5}
+
+
+# --- layout helpers ----------------------------------------------------------
+
+def to_internal(params: Params, plan: WindowPlan) -> Params:
+    """External (M, 3) points → planes (NR, 3, G)."""
+    pts = plan.gather_points(params.points)          # (NR, G, 3)
+    return params.replace(points=pts.transpose(1, 2).contiguous())
+
+
+def to_external(params: Params, plan: WindowPlan) -> Params:
+    """Planes (NR, 3, G) → external (M, 3)."""
+    return params.replace(
+        points=plan.scatter_points(params.points.transpose(1, 2)))
+
+
+def _as_v1(params: Params) -> Params:
+    """Planes params → window-order (NR·G, 3) params for banded.py's
+    residual path."""
+    return params.replace(points=params.points.transpose(1, 2).reshape(-1, 3))
+
+
+def invert_sym3_planes(c6: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of symmetric PD 3×3 packed planes (NR, 6, G)."""
+    a, b, c, d, e, f = c6.unbind(1)                   # 00 01 02 11 12 22
+    co00 = d * f - e * e
+    co01 = c * e - b * f
+    co02 = b * e - c * d
+    det = a * co00 + b * co01 + c * co02
+    co11 = a * f - c * c
+    co12 = b * c - a * e
+    co22 = a * d - b * b
+    return (torch.stack([co00, co01, co02, co11, co12, co22], dim=1)
+            * (1.0 / det)[:, None])
+
+
+def _sym_full(c6: torch.Tensor) -> torch.Tensor:
+    """(NR, 6, G) packed symmetric → (NR, 3, 3, G) full."""
+    idx = [[_C6_AT[(x, y)] for y in range(3)] for x in range(3)]
+    return c6[:, torch.tensor(idx, device=c6.device)]
+
+
+def _cinv_apply(c6inv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(NR, 6, G) packed symmetric × (NR, 3, G) → (NR, 3, G)."""
+    return torch.stack([
+        sum(c6inv[:, _C6_AT[(x, y)], :] * v[:, y, :] for y in range(3))
+        for x in range(3)], dim=1)
+
+
+def fcf_band_planes(F: torch.Tensor, c6inv: torch.Tensor,
+                    plan: WindowPlan) -> torch.Tensor:
+    """F C⁻¹ Fᵀ folded into the (P, W, 6, 6) band, planes layout.
+
+    One batched matmul computes all (w, w') window pairs: both sides are
+    (NR, W·6, 3·G) with the point component and G flattened into the
+    contraction axis; the right side is a pure reshape of F (a-major,
+    p-minor).  Band blocks (w, w + d) are then gathered and folded once.
+    """
+    NR, W, _, G = F.shape
+    F5 = F.view(NR, W, 6, 3, G)
+    Y = torch.einsum("nwaxg,nxyg->nwayg", F5, _sym_full(c6inv))   # F C⁻¹
+    full = torch.bmm(Y.reshape(NR, W * 6, 3 * G),
+                     F.reshape(NR, W * 6, 3 * G).transpose(1, 2))
+    full6 = full.view(NR, W, 6, W, 6).permute(0, 1, 3, 2, 4)   # n w w' a b
+    ar = torch.arange(W, device=F.device)
+    wd = ar[:, None] + ar[None, :]                                # w + d
+    gath = full6[:, ar[:, None], wd % W]                          # n w d a b
+    gath = gath * (wd < W).to(F.dtype)[None, :, :, None, None]
+    return plan.fold(gath.reshape(NR, W, W * 36)).reshape(
+        plan.n_poses, W, 6, 6)
+
+
+def e_apply_planes(F: torch.Tensor, y0: torch.Tensor,
+                   plan: WindowPlan) -> torch.Tensor:
+    """(E·y)_cam from planes: F (NR, W, 18, G), y0 (NR, 3, G) → (P, 6)."""
+    NR, W, _, G = F.shape
+    return plan.fold(torch.einsum("nwaxg,nxg->nwa", F.view(NR, W, 6, 3, G),
+                                  y0))
+
+
+def et_apply_planes(F: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
+    """Eᵀ·p per point: F (NR, W, 18, G), pw (NR, W, 6) → (NR, 3, G)."""
+    NR, W, _, G = F.shape
+    return torch.einsum("nwaxg,nwa->nxg", F.view(NR, W, 6, 3, G), pw)
+
+
+# --- prepare -----------------------------------------------------------------
+
+@dataclasses.dataclass
+class KernelStatics:
+    """The kernel's per-problem inputs, laid out once per solve."""
+    ptf: torch.Tensor    # (NR, G)
+    uv: torch.Tensor     # (NR, 2, L, G)
+    tt: torch.Tensor     # (NR, L, G)
+    mask: torch.Tensor   # (NR, L, G)
+    offs: torch.Tensor   # (NR, L, G) int32
+    rsf: torch.Tensor    # (NR, L, G)
+
+
+def kernel_statics(plan: WindowPlan, problem: Problem) -> KernelStatics:
+    c = lambda a: a.contiguous()  # noqa: E731
+    return KernelStatics(
+        ptf=c(plan.gather_point_scalar(problem.point_free)),
+        uv=c(plan.uv.permute(0, 3, 2, 1)), tt=c(plan.t.transpose(1, 2)),
+        mask=c(plan.mask.transpose(1, 2)),
+        offs=c(plan.offs_a.transpose(1, 2).to(torch.int32)),
+        rsf=c(plan.rs_ab.transpose(1, 2)))
+
+
+def kernel_inputs(params: Params, plan: WindowPlan, problem: Problem,
+                  st: KernelStatics) -> tuple:
+    """Positional inputs of ``fused.fused_evaluate_assemble``."""
+    win = torch.cat([plan.pose_windows(params.q), plan.pose_windows(params.c),
+                     plan.pose_windows(problem.pose_free)[..., None]], dim=-1)
+    return (win.contiguous(), params.points.contiguous(), st.ptf, st.uv,
+            st.tt, st.mask, st.offs, st.rsf, params.intr[0].contiguous())
+
+
+def prepare(plan: WindowPlan, problem: Problem, options: SolverOptions,
+            params: Params, evaluate, statics: KernelStatics) -> dict:
+    """Fused evaluate+assemble, window fold and Jacobi scaling.
+    ``evaluate`` is one of the kernels/fused.py entry points."""
+    out = evaluate(*kernel_inputs(params, plan, problem, statics),
+                   model=problem.model, loss=problem.loss)
+    P = plan.n_poses
+    g_cam = plan.fold(out["gw"])                     # (P, 6)
+    B0 = plan.fold(out["b0"]).reshape(P, 6, 6)
+    B1 = plan.fold(out["b1"]).reshape(P, 6, 6)
+    g_pt, c6, F = out["g_pt"], out["c6"], out["F"]
+
+    gmax = torch.maximum(g_cam.abs().max(), g_pt.abs().max())
+    d_cam = torch.diagonal(B0, dim1=-2, dim2=-1)     # (P, 6)
+    d_pt = c6[:, C6_DIAG, :]                         # (NR, 3, G)
+    if options.jacobi_scaling:
+        def scale(d):
+            return torch.where(
+                d > 0, 1.0 / (1.0 + torch.sqrt(torch.clamp(d, min=0.0))),
+                1.0)
+        s_cam, s_pt = scale(d_cam), scale(d_pt)
+        g_cam = g_cam * s_cam
+        g_pt = g_pt * s_pt
+        c6 = c6 * torch.stack([s_pt[:, p] * s_pt[:, q]
+                               for (p, q) in C6_PAIRS], dim=1)
+        NR, W, _, G = F.shape
+        scw = plan.pose_windows(s_cam)               # (NR, W, 6)
+        F = (F.view(NR, W, 6, 3, G) * scw[:, :, :, None, None]
+             * s_pt[:, None, None, :, :]).reshape(NR, W, 18, G)
+        s_next = torch.cat([s_cam[1:], torch.zeros_like(s_cam[:1])])
+        B0 = B0 * s_cam[:, :, None] * s_cam[:, None, :]
+        # B1 couples pose p with p + 1: scale its columns by s_cam[p + 1].
+        B1 = B1 * s_cam[:, :, None] * s_next[:, None, :]
+    else:
+        s_cam = torch.ones_like(d_cam)
+        s_pt = torch.ones_like(d_pt)
+    return {"cost": out["cost"], "g_cam": g_cam, "g_pt": g_pt, "c6": c6,
+            "F": F, "B0": B0, "B1": B1, "s_cam": s_cam, "s_pt": s_pt,
+            "gradient_max_norm": gmax}
+
+
+# --- solve step --------------------------------------------------------------
+
+def schur_band_planes(F, c6inv, B0, B1, lm_cam, plan: WindowPlan):
+    """S_λ band (P, W, 6, 6) from planes-layout F and packed C⁻¹."""
+    S = -fcf_band_planes(F, c6inv, plan)
+    S[:, 0] += B0 + torch.diag_embed(lm_cam)
+    if plan.W > 1:
+        S[:, 1] += B1
+    return S
+
+
+def solve_step(plan: WindowPlan, options: SolverOptions, aux: dict,
+               radius: float):
+    """Damped Schur solve: returns (dx, predicted decrease, CG iters)."""
+    P = plan.n_poses
+    F, c6 = aux["F"], aux["c6"]
+    g_cam, g_pt = aux["g_cam"], aux["g_pt"]
+
+    d_cam = torch.diagonal(aux["B0"], dim1=-2, dim2=-1)
+    lm_cam, _ = _lm_scaled_damp(d_cam.reshape(-1), radius, options)
+    lm_cam = lm_cam.reshape(P, POSE_DOF)
+    d_pt = c6[:, C6_DIAG, :]
+    lm_pt, _ = _lm_scaled_damp(d_pt.reshape(-1), radius, options)
+    lm_pt = lm_pt.reshape(d_pt.shape)                # (NR, 3, G)
+    c6_l = c6.clone()
+    c6_l[:, C6_DIAG, :] += lm_pt
+    c6inv = invert_sym3_planes(c6_l)
+
+    S = schur_band_planes(F, c6inv, aux["B0"], aux["B1"], lm_cam, plan)
+    # rhs: b = −g_cam − E C_λ⁻¹ (−g_pt)
+    b = -g_cam - e_apply_planes(F, _cinv_apply(c6inv, -g_pt), plan)
+    precond = banded.make_band_preconditioner(S, options.preconditioner)
+
+    def matvec(p_flat):
+        return banded.band_matvec(S, p_flat.reshape(P, POSE_DOF)).reshape(-1)
+
+    dc_flat, r_cg, iters = pcg(matvec, precond, b.reshape(-1),
+                               options.max_cg_iterations, options.cg_eta)
+    dc = dc_flat.reshape(P, POSE_DOF)
+    # Back-substitute landmarks.
+    dp = _cinv_apply(c6inv, -g_pt - et_apply_planes(F, plan.pose_windows(dc)))
+
+    gTdx = torch.sum(g_cam * dc) + torch.sum(g_pt * dp)
+    dDd = torch.sum(lm_cam * dc * dc) + torch.sum(lm_pt * dp * dp)
+    predicted = 0.5 * (dDd - gTdx) - 0.5 * torch.dot(r_cg, dc_flat)
+    dx = {"pose": aux["s_cam"] * dc, "pt": aux["s_pt"] * dp}
+    return dx, predicted, iters
+
+
+def apply_step(plan: WindowPlan, problem: Problem, params: Params, dx,
+               ptf: torch.Tensor):
+    """Retract the step: quaternion ⊞ on rotations, additive elsewhere.
+    Returns (new params, step norm, parameter norm)."""
+    d_pose = dx["pose"] * problem.pose_free[:, None]
+    d_pt = dx["pt"] * ptf[:, None, :]
+    new = params.replace(q=quat.boxplus(params.q, d_pose[:, :3]),
+                         c=params.c + d_pose[:, 3:],
+                         points=params.points + d_pt)
+    step_norm = torch.sqrt(torch.sum(d_pose ** 2) + torch.sum(d_pt ** 2))
+    x_norm = torch.sqrt(
+        torch.sum(params.c ** 2) + torch.sum(params.points ** 2)
+        + torch.sum(params.q ** 2) + torch.sum(params.intr ** 2))
+    return new, step_norm, x_norm
+
+
+# --- solver-fns dict ---------------------------------------------------------
+
+def make_fused_solver_fns(problem: Problem, plan: WindowPlan,
+                          options: SolverOptions) -> dict:
+    """Phase functions for ``lm.solve``: fused prepare + planes solve_step.
+
+    ``options.evaluator`` picks the prepare's evaluator: "cuda" the
+    kernel (raises on CPU tensors), "torch" its plain version, "auto" the
+    kernel on a CUDA problem and the plain version on a CPU one.
+    """
+    from .lm import inlier_threshold
+    thresh = inlier_threshold(problem)
+    evaluate = {"auto": fused.fused_evaluate_assemble,
+                "cuda": fused.fused_evaluate_assemble_cuda,
+                "torch": fused.fused_evaluate_assemble_reference,
+                }[options.evaluator]
+    use_kernel = (options.evaluator == "cuda"
+                  or (options.evaluator == "auto"
+                      and problem.device.type != "cpu"))
+    statics = kernel_statics(plan, problem)
+    ptf = statics.ptf
+    return {
+        "prepare": lambda p: prepare(plan, problem, options, p, evaluate,
+                                     statics),
+        "solve_step": lambda aux, radius: solve_step(plan, options, aux,
+                                                     radius),
+        "apply_step": lambda p, dx: apply_step(plan, problem, p, dx, ptf),
+        "cost": lambda p: banded.cost_only(plan, problem, _as_v1(p)),
+        "cost_decrease": lambda a, b: banded.cost_decrease(
+            plan, problem, _as_v1(a), _as_v1(b)),
+        "error_stats": lambda p: banded.error_stats(plan, problem, _as_v1(p),
+                                                    thresh),
+        "to_internal": lambda p: to_internal(p, plan),
+        "to_external": lambda p: to_external(p, plan),
+        "engine": ("banded_schur", "cuda" if use_kernel else "torch"),
+    }

@@ -1,0 +1,85 @@
+"""Solver configuration — counterpart of ``rsba_tpu/solver/options.py``
+(parity with ``ceres::Solver::Options``), trimmed to the knobs the port
+has."""
+from __future__ import annotations
+
+import dataclasses
+
+LINEAR_SOLVERS = ("auto", "dense", "dense_schur", "iterative_schur",
+                  "banded_schur")
+PRECONDITIONERS = ("jacobi", "schur_jacobi", "cluster_jacobi")
+EVALUATORS = ("auto", "cuda", "torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverOptions:
+    """Solver knobs.
+
+    Trust-region semantics follow Ceres's Levenberg-Marquardt strategy:
+    damping λ = 1/μ with μ the trust-region radius, radius grown by
+    1/max(1/3, 1−(2ρ−1)³) on accepted steps and halved-with-backoff on
+    rejections.
+    """
+    # Outer loop.  "dogleg" is not ported yet (ROADMAP.md, Queue 1).
+    trust_region_strategy: str = "lm"
+    max_iterations: int = 50
+    initial_radius: float = 1e4
+    max_radius: float = 1e16
+    min_radius: float = 1e-32
+    min_relative_decrease: float = 1e-3
+    function_tolerance: float = 1e-6
+    gradient_tolerance: float = 1e-10
+    parameter_tolerance: float = 1e-8
+    max_invalid_steps: int = 5         # consecutive non-finite-step budget
+
+    # Linear solver.  "auto" picks the banded window solver when the
+    # problem's track structure admits it.  Only "auto"/"banded_schur"
+    # are ported; the flat engines raise NotImplementedError.
+    linear_solver: str = "auto"
+    # PCG preconditioner on the band: "schur_jacobi" (alias "jacobi").
+    # "cluster_jacobi" is not ported yet.
+    preconditioner: str = "schur_jacobi"
+    min_lm_diagonal: float = 1e-6
+    max_lm_diagonal: float = 1e32
+    jacobi_scaling: bool = True
+    # PCG: max iterations and the forcing-sequence eta.
+    max_cg_iterations: int = 100
+    cg_eta: float = 1e-2
+    # Evaluator of the banded solver's prepare phase: "cuda" = the fused
+    # evaluate+assemble CUDA kernel (raises on CPU tensors), "torch" = its
+    # plain PyTorch version, "auto" = the kernel on CUDA tensors and the
+    # plain version on CPU tensors.
+    evaluator: str = "auto"
+    # "highest": solve() turns TF32 off for matmuls and cuDNN.  TF32 /
+    # bf16 accumulation in the normal equations cost 5% final cost and
+    # 40 vs 6 LM iterations on the reference.
+    matmul_precision: str = "highest"
+
+    # On-device LM loop: not ported yet ("auto" resolves to the host
+    # loop, "on" raises NotImplementedError).
+    device_loop: str = "auto"
+
+    # Reporting
+    verbose: bool = False
+
+    def __post_init__(self):
+        if self.linear_solver not in LINEAR_SOLVERS:
+            raise ValueError(
+                f"linear_solver must be one of {LINEAR_SOLVERS}, "
+                f"got {self.linear_solver!r}")
+        if self.preconditioner not in PRECONDITIONERS:
+            raise ValueError(
+                f"preconditioner must be one of {PRECONDITIONERS}, "
+                f"got {self.preconditioner!r}")
+        if self.evaluator not in EVALUATORS:
+            raise ValueError(
+                f"evaluator must be one of {EVALUATORS}, "
+                f"got {self.evaluator!r}")
+        if self.trust_region_strategy not in ("lm", "dogleg"):
+            raise ValueError(
+                f"trust_region_strategy must be 'lm' or 'dogleg', "
+                f"got {self.trust_region_strategy!r}")
+        if self.device_loop not in ("auto", "on", "off"):
+            raise ValueError(
+                f"device_loop must be 'auto', 'on' or 'off', "
+                f"got {self.device_loop!r}")

@@ -1,0 +1,219 @@
+"""Window (track-major) observation layout.
+
+Counterpart of ``rsba_tpu/solver/window.py``.  A problem whose feature
+tracks span bounded pose windows is re-packed into a ``(row, point,
+slot)`` grid:
+
+* each point's observations sit in one row of an ``(NR, G, L)`` grid —
+  ``NR`` window rows, ``G`` points per row (padded), ``L`` slots per
+  point (padded track length);
+* every point in a row shares the W-pose window base ``row_base[r]``;
+  heavily populated bases are split across rows.
+
+Per-slot pose data is a gather over the row's W-window, and camera-side
+reductions sum per-row windows and fold them into per-pose rows with one
+``index_add_`` over ``NR·W`` indices.
+
+Applicability: every point's observations touch a pose window of bounded
+span, pose_b ∈ {pose_a, pose_a + 1}, and a single fixed intrinsics
+block.  ``build_window_plan`` returns None otherwise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..problem.types import Problem
+
+#: widest pose window a point's track may span
+MAX_WINDOW = 24
+#: the points-per-row and row counts are padded to multiples of this
+PAD_MULTIPLE = 8
+
+
+@dataclasses.dataclass
+class WindowPlan:
+    """Static re-packing of a Problem into the (NR, G, L) window grid.
+
+    Padding: slots with mask == 0; padded point cells have point_id == M
+    (the sentinel row appended to gathered point arrays).
+    """
+    NR: int
+    G: int
+    L: int
+    W: int
+    n_poses: int
+    n_points: int
+    row_base: torch.Tensor    # (NR,) int64 first pose of the row's window
+    uv: torch.Tensor          # (NR, G, L, 2)
+    t: torch.Tensor           # (NR, G, L)
+    mask: torch.Tensor        # (NR, G, L) 1.0 valid / 0.0 padding
+    offs_a: torch.Tensor      # (NR, G, L) int64 pose_a − row_base ∈ [0, W)
+    rs_ab: torch.Tensor       # (NR, G, L) 1.0 where pose_b == pose_a + 1
+    point_id: torch.Tensor    # (NR, G) int64 original point index (M: pad)
+
+    @property
+    def offs_b(self) -> torch.Tensor:
+        return self.offs_a + self.rs_ab.to(torch.int64)
+
+    def _win_idx(self) -> torch.Tensor:
+        return (self.row_base[:, None]
+                + torch.arange(self.W, device=self.row_base.device))
+
+    def pose_windows(self, arr: torch.Tensor) -> torch.Tensor:
+        """(P, ...) per-pose array → (NR, W, ...): win[r, w] =
+        arr[row_base[r] + w], zero past the last pose."""
+        pad = arr.new_zeros((self.W,) + tuple(arr.shape[1:]))
+        return torch.cat([arr, pad], dim=0)[self._win_idx()]
+
+    def fold(self, v: torch.Tensor) -> torch.Tensor:
+        """Adjoint of pose_windows: (NR, W, ...) → (P, ...),
+        out[row_base[r] + w] += v[r, w]."""
+        rest = tuple(v.shape[2:])
+        out = v.new_zeros((self.n_poses + self.W,) + rest)
+        out.index_add_(0, self._win_idx().reshape(-1),
+                       v.reshape((-1,) + rest))
+        return out[:self.n_poses]
+
+    def _select(self, win: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+        rows = torch.arange(self.NR, device=offs.device)[:, None, None]
+        return win[rows, offs]
+
+    def select_a(self, win: torch.Tensor) -> torch.Tensor:
+        """Per-slot pose_a values: (NR, W, ...) → (NR, G, L, ...)."""
+        return self._select(win, self.offs_a)
+
+    def select_b(self, win: torch.Tensor) -> torch.Tensor:
+        """Per-slot pose_b values (pose_a + rs_ab)."""
+        return self._select(win, self.offs_b)
+
+    def gather_points(self, points: torch.Tensor) -> torch.Tensor:
+        """(M, D) → (NR, G, D) padded window layout (sentinel row zero)."""
+        ext = torch.cat([points, points.new_zeros((1, points.shape[1]))])
+        return ext[self.point_id]
+
+    def scatter_points(self, pts_w: torch.Tensor) -> torch.Tensor:
+        """(NR, G, D) window layout → (M, D) original order.  Every point
+        occupies exactly one cell, so this is an index put; padded cells
+        write into a dropped sentinel row."""
+        D = pts_w.shape[-1]
+        out = pts_w.new_zeros((self.n_points + 1, D))
+        out[self.point_id.reshape(-1)] = pts_w.reshape(-1, D)
+        return out[:self.n_points]
+
+    def gather_point_scalar(self, v: torch.Tensor) -> torch.Tensor:
+        """(M,) → (NR, G) via the point permutation (sentinel 0)."""
+        return torch.cat([v, v.new_zeros((1,))])[self.point_id]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def build_window_plan(problem: Problem) -> Optional[WindowPlan]:
+    """Host-side (numpy) plan construction; the plan's tensors live on the
+    problem's device.  Returns None when the problem does not fit the
+    window layout.  Points per row G is the 95th percentile of points per
+    window base, so padding stays bounded under skew."""
+    if problem.intr_tangent_dim != 0 or problem.intr_free.shape[0] != 1:
+        return None
+    obs = problem.obs
+    host = lambda a: a.detach().cpu().numpy()  # noqa: E731
+    pose_a = host(obs.pose_a).astype(np.int64)
+    pose_b = host(obs.pose_b).astype(np.int64)
+    point = host(obs.point).astype(np.int64)
+    mask = host(obs.mask) > 0
+    d_ab = pose_b - pose_a
+    if not np.all(np.isin(d_ab[mask], (0, 1))):
+        return None
+
+    n_points = int(problem.point_free.shape[0])
+    n_poses = int(problem.pose_free.shape[0])
+
+    # Per-point observation lists (valid obs only), via one stable sort.
+    valid_idx = np.nonzero(mask)[0]
+    order = valid_idx[np.argsort(point[valid_idx], kind="stable")]
+    pts_sorted = point[order]
+    counts = np.bincount(pts_sorted, minlength=n_points)
+    if counts.size == 0 or counts.max() == 0:
+        return None
+    L = int(counts.max())
+    offsets = np.cumsum(counts) - counts
+
+    # Window base and span per point (over both pose_a and pose_b).
+    lo = np.full(n_points, np.iinfo(np.int32).max, dtype=np.int64)
+    hi = np.full(n_points, -1, dtype=np.int64)
+    np.minimum.at(lo, pts_sorted, pose_a[order])
+    np.maximum.at(hi, pts_sorted, pose_b[order])
+    has_obs = counts > 0
+    lo[~has_obs] = 0
+    hi[~has_obs] = 0
+    W = int((hi - lo + 1)[has_obs].max())
+    if W > MAX_WINDOW:
+        return None
+    base = lo
+
+    # Rows: group points by base, splitting heavy bases into chunks of G.
+    porder = np.argsort(base, kind="stable")
+    b_counts = np.bincount(base, minlength=int(base.max()) + 1)
+    pos_counts = b_counts[b_counts > 0]
+    g_target = int(np.percentile(pos_counts, 95))
+    G = _round_up(max(min(g_target, int(pos_counts.max())), 1), PAD_MULTIPLE)
+
+    n_chunks = -(-b_counts // G)
+    base_start = np.cumsum(b_counts) - b_counts
+    NR0 = int(n_chunks.sum())
+    row_base0 = np.repeat(np.arange(b_counts.size), n_chunks)
+    first_row = np.cumsum(n_chunks) - n_chunks
+    row_in_base = np.arange(NR0) - first_row[row_base0]
+    row_of_chunk = base_start[row_base0] + row_in_base * G
+    row_len = np.minimum(G, b_counts[row_base0] - row_in_base * G)
+
+    # Pad the row count with empty masked rows.
+    NR = _round_up(max(NR0, 1), PAD_MULTIPLE)
+    row_base = np.zeros(NR, dtype=np.int64)
+    row_base[:NR0] = row_base0
+
+    cols = np.arange(G)
+    cell_valid = cols[None, :] < row_len[:, None]
+    src = row_of_chunk[:, None] + cols[None, :]
+    point_id = np.full((NR, G), n_points, dtype=np.int64)
+    point_id[:NR0][cell_valid] = porder[src[cell_valid]]
+
+    # Per-slot flat obs index (sentinel = len(obs) → zero row).
+    n_flat = pose_a.shape[0]
+    obs_sel = np.full((NR * G, L), n_flat, dtype=np.int64)
+    pid_flat = point_id.reshape(-1)
+    rows = np.nonzero(pid_flat < n_points)[0]
+    pj = pid_flat[rows]
+    slot_valid = np.arange(L)[None, :] < counts[pj][:, None]
+    slot_src = offsets[pj][:, None] + np.arange(L)[None, :]
+    obs_sel[rows[:, None], np.broadcast_to(np.arange(L), slot_valid.shape)
+            ] = np.where(slot_valid,
+                         order[np.minimum(slot_src, order.size - 1)], n_flat)
+    obs_sel = obs_sel.reshape(NR, G, L)
+
+    def pack(a, fill=0.0):
+        ext = np.concatenate(
+            [a, np.full((1,) + a.shape[1:], fill, dtype=a.dtype)])
+        return ext[obs_sel]
+
+    uv_h = host(obs.uv)
+    pa = pack(pose_a, fill=0)
+    dab = pack(d_ab, fill=0)
+    offs_a = np.where(obs_sel < n_flat, pa - row_base[:, None, None], 0)
+    if offs_a.min() < 0 or (offs_a + dab).max() >= W:
+        return None
+
+    dev, dt = problem.device, obs.uv.dtype
+    as_f = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    as_i = lambda a: torch.as_tensor(a, dtype=torch.int64,  # noqa: E731
+                                     device=dev)
+    return WindowPlan(
+        NR=NR, G=G, L=L, W=W, n_poses=n_poses, n_points=n_points,
+        row_base=as_i(row_base), uv=as_f(pack(uv_h)),
+        t=as_f(pack(host(obs.t))), mask=as_f(pack(mask.astype(uv_h.dtype))),
+        offs_a=as_i(offs_a), rs_ab=as_f(dab), point_id=as_i(point_id))
