@@ -6,12 +6,17 @@
 Phases, each raising on failure (exit code 1):
 
 1. environment: the card's name and power limit, the torch / CUDA / nvcc
-   / Triton versions, and the build of the CUDA kernels from csrc/;
+   / Triton versions, and the build of the CUDA kernels from csrc/ with
+   what ptxas reports for each entry (registers, spills);
 2. the fused evaluate+assemble kernel against its plain PyTorch version
    on the card: six small float64 fixtures covering every
-   specialisation (rtol = atol = 1e-9), then config 4's shapes in
-   float32 (each output within 1e-4·max|ref|, summation order over
-   ~L·G terms), with the kernel's and the plain version's times;
+   specialisation, one of them again with pose_b == pose_a on part of
+   its slots, and one whose rows are too wide for one shared-memory tile
+   so that the kernel walks them in column chunks (rtol = atol = 1e-9);
+   then config 4's shapes in float32 (each output within 1e-4·max|ref|,
+   summation order over ~L·G terms), two launches on the same inputs
+   giving equal bits, the kernel's bound from the shapes, and the
+   kernel's and the plain version's times;
 3. config 4 (rs_slerp_robust, 1,001 poses, 100k points) at full size in
    float32 through ``rsba_tpu_torch.solver.solve``: the engine must be
    banded_schur/cuda, every prepare must launch the kernel, the solve
@@ -36,6 +41,10 @@ RMSE_TOL = 0.002
 N_OBS_CONFIG4 = 910092        # benchmarks/SCALING.json, float64 generator
 KERNEL_SOURCE = "rsba_tpu_torch/csrc/fused_evaluate_assemble.cu"
 KERNEL_REPLACES = "rsba_tpu/kernels/fused.py:469"
+# Published peaks of one H100 SXM: device memory rate and float32 rate
+# outside the tensor cores (the kernel uses none).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -84,6 +93,67 @@ def fixtures():
     }
 
 
+def chunked_fixture():
+    """A float64 problem whose rows (G = 352 columns, W = 5) are wider
+    than one block's shared-memory tile of F: the chunked route."""
+    from rsba_tpu_torch.geometry import Loss
+    return dict(n_poses=9, n_points=1500, track_len=4, rolling_shutter=True,
+                rotation_interp="slerp", use_distortion=True,
+                loss=Loss("huber", 4.0), seed=11, pad_to=64)
+
+
+def same_pose_on_some_slots(inp):
+    """The kernel inputs with pose_b == pose_a (rsf = 0) on every third
+    point column: the route where both sides of a slot move one pose."""
+    inp = list(inp)
+    rsf = inp[7].clone()
+    rsf[:, :, ::3] = 0.0
+    inp[7] = rsf
+    return tuple(inp)
+
+
+def slot_flops(model, loss) -> int:
+    """Floating-point operations the algorithm needs for one valid slot
+    (an FMA counts 2), read off the arithmetic of the CUDA source: the
+    rotation chain on duals with 6 tangents (3 without rolling shutter),
+    the projection side as plain 2x3 products."""
+    if not model.rolling_shutter:
+        pose, rotate, sums = 0, 165, 112      # 28 window-sum values
+    else:
+        # dual product 19, dual sum 7, dual x scalar 7, sqrt/sin/cos 10,
+        # quotient 20
+        pose = {"slerp": 21 + 186 + 388,      # t w, from_aa, q_mul
+                "nlerp": 290,                 # blend, normalise
+                "lerp_aa": 63 + 186}[model.rotation_interp]
+        rotate, sums = 300, 364               # 91 window-sum values
+    project = 80 if model.use_distortion else 40
+    jac = 135 if model.rolling_shutter else 105     # M dXc, R, M R, scales
+    triggs = 185 if loss.kind != "trivial" else 0
+    point_side = 27 + 4 * (36 if model.rolling_shutter else 18)
+    return pose + rotate + project + jac + triggs + point_side + sums
+
+
+def kernel_bound(inp, model, loss) -> dict:
+    """The least time the card could take for one call on these inputs:
+    every input read once and every output written once at the memory
+    rate, against the valid slots' operations at the float32 rate."""
+    win, pts = inp[0], inp[1]
+    NR, W, _ = win.shape
+    G = pts.shape[2]
+    size = win.element_size()
+    n_valid = int((inp[5] > 0).sum())
+    bytes_in = sum(x.numel() * x.element_size() for x in inp)
+    bytes_out = size * (NR + NR * W * (6 + 36 + 36) + NR * G * (3 + 6)
+                        + NR * W * 18 * G)
+    flops = n_valid * slot_flops(model, loss)
+    t_bytes = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {"bytes_in": bytes_in, "bytes_out": bytes_out, "flops": flops,
+            "valid_slots": n_valid, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def kernel_inputs(ba):
     """(plan, statics, planes params, kernel inputs) of a problem."""
     from rsba_tpu_torch.solver import banded_fused, window
@@ -94,11 +164,14 @@ def kernel_inputs(ba):
         params, plan, ba.problem, statics)
 
 
-def compare(name, ba, rtol=None, atol=None, rel_to_max=None):
-    """Kernel vs plain version on one problem; returns max |Δ|."""
+def compare(name, ba, rtol=None, atol=None, rel_to_max=None, edit=None):
+    """Kernel vs plain version on one problem (``edit`` maps the kernel
+    inputs to the ones both versions get); returns max |Δ|."""
     import torch
     from rsba_tpu_torch.kernels import fused
     plan, _, _, inp = kernel_inputs(ba)
+    if edit is not None:
+        inp = edit(inp)
     model, loss = ba.problem.model, ba.problem.loss
     ref = fused.fused_evaluate_assemble_reference(*inp, model=model,
                                                   loss=loss)
@@ -123,10 +196,31 @@ def compare(name, ba, rtol=None, atol=None, rel_to_max=None):
             raise AssertionError(f"{name}: kernel output {k} differs from "
                                  f"the plain version: max|Δ| {err:.3e}, "
                                  f"max|ref| {scale:.3e}")
+    lp = fused.launch_plan(plan.W, plan.G, inp[0].element_size(),
+                           model.rolling_shutter)
     log(f"kernel vs plain {name} ({str(inp[0].dtype)[6:]}, NR={plan.NR} "
-        f"W={plan.W} L={plan.L} G={plan.G}): max|Δ| {worst_abs:.3e}, "
+        f"W={plan.W} L={plan.L} G={plan.G}, {lp.threads} threads, "
+        f"{lp.chunks} chunk(s) of {lp.tile_cols} columns, "
+        f"{lp.smem_bytes} B shared): max|Δ| {worst_abs:.3e}, "
         f"max |Δ|/max|ref| {worst_rel:.3e}  OK")
     return worst_abs
+
+
+def check_equal_bits(ba):
+    """Two launches on the same inputs must give the same bits."""
+    import torch
+    from rsba_tpu_torch.kernels import fused
+    _, _, _, inp = kernel_inputs(ba)
+    model, loss = ba.problem.model, ba.problem.loss
+    first = fused.fused_evaluate_assemble_cuda(*inp, model=model, loss=loss)
+    second = fused.fused_evaluate_assemble_cuda(*inp, model=model, loss=loss)
+    torch.cuda.synchronize()
+    for k, x in first.items():
+        if not torch.equal(x, second[k]):
+            raise AssertionError(f"two launches on the same inputs differ "
+                                 f"in {k}")
+    log(f"two launches on the same {ba.name or 'fixture'} inputs: all seven "
+        "outputs torch.equal  OK")
 
 
 def time_prepares(ba, n_kernel=20, n_plain=3):
@@ -275,7 +369,8 @@ def main() -> int:
     log(f"kernel build {time.perf_counter() - t0:.2f} s "
         f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path.name}")
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line \
+                or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     # --- 2. kernel vs plain version ---------------------------------------
@@ -283,11 +378,34 @@ def main() -> int:
         ba = synthetic.make_ba_problem(dtype=torch.float64, device="cuda",
                                        **kw)
         compare(name, ba, rtol=1e-9, atol=1e-9)
+        if name == "flagship_slerp_dist_huber":
+            compare(name + "+same_pose", ba, rtol=1e-9, atol=1e-9,
+                    edit=same_pose_on_some_slots)
+    ba = synthetic.make_ba_problem(dtype=torch.float64, device="cuda",
+                                   **chunked_fixture())
+    plan = kernel_inputs(ba)[0]
+    if fused.launch_plan(plan.W, plan.G, 8, True).chunks < 2:
+        raise AssertionError("the chunked fixture fits one tile")
+    compare("chunked_slerp_dist_huber", ba, rtol=1e-9, atol=1e-9)
+    del ba
     ba4 = synthetic.CONFIGS["rs_slerp_robust"](scale=1.0,
                                                dtype=torch.float32,
                                                device="cuda")
     err4 = compare("config4_shapes", ba4, rel_to_max=1e-4)
+    check_equal_bits(ba4)
+    bound = kernel_bound(kernel_inputs(ba4)[3], ba4.problem.model,
+                         ba4.problem.loss)
+    log(f"kernel bound at config-4 shapes (float32): inputs "
+        f"{bound['bytes_in']} B + outputs {bound['bytes_out']} B at "
+        f"{HBM_BYTES_PER_S:.3g} B/s = {bound['bytes_ms']:.4f} ms; "
+        f"{bound['valid_slots']} valid slots x "
+        f"{bound['flops'] // bound['valid_slots']} FLOP = "
+        f"{bound['flops']} FLOP at {FP32_FLOP_PER_S:.3g} FLOP/s = "
+        f"{bound['ops_ms']:.4f} ms; bound {bound['bound_ms']:.4f} ms by "
+        f"{bound['bound_by']}")
     times = time_prepares(ba4)
+    log(f"kernel {times['kernel']:.3f} ms is "
+        f"{times['kernel'] / bound['bound_ms']:.1f}x its bound")
     del ba4
     torch.cuda.empty_cache()
 
@@ -304,8 +422,11 @@ def main() -> int:
     log(json.dumps({"kernels": [{
         "name": "fused_evaluate_assemble", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": err4,
+        "launches": launches, "launches_per_solve": launches,
+        "max_abs_err": err4,
         "ms": times["kernel"], "plain_ms": times["plain"],
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "library_ms": None,
         "prepare_ms": times["prepare_kernel"],
         "plain_prepare_ms": times["prepare_plain"]}]}))
     log(card)

@@ -14,7 +14,26 @@ evaluate+assemble kernel (``kernels/fused.py``, CUDA source in
 
 __version__ = "0.1.0"
 
-from . import geometry
-from .geometry import CameraModel, Loss
+import torch
 
-__all__ = ["geometry", "CameraModel", "Loss"]
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point places its tensors on.
+
+    ``None`` means the card: ``torch.device("cuda")``, or a RuntimeError
+    when there is none (the port never carries on on the CPU by itself).
+    Anything else, ``device="cpu"`` included, is taken as given.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "rsba_tpu_torch runs on a CUDA GPU by default and none is "
+            'available; pass device="cpu" to ask for the CPU')
+    return torch.device("cuda")
+
+
+from . import geometry  # noqa: E402
+from .geometry import CameraModel, Loss  # noqa: E402
+
+__all__ = ["geometry", "CameraModel", "Loss", "default_device"]

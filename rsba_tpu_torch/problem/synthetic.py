@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import default_device
 from ..geometry import CameraModel, Loss, camera
 from ..geometry import quaternion as quat
 from .types import (Observations, Params, Problem, intr_basis_bal,
@@ -150,7 +151,7 @@ def make_ba_problem(
     focal: float = 900.0,
     seed: int = 0,
     dtype=torch.float64,
-    device="cpu",
+    device=None,
     rot_sigma: float = 0.01,
     trans_sigma: float = 0.02,
     point_sigma: float = 0.02,
@@ -164,6 +165,7 @@ def make_ba_problem(
     pose i+1 (row H).  Each point is seen by a contiguous window of frames.
     Global shutter: every pose is a frame, pose_b == pose_a, t == 0.
     """
+    device = default_device(device)
     rng = np.random.RandomState(seed)
     W, H = image_size
     n_frames = n_poses - 1 if rolling_shutter else n_poses
@@ -264,7 +266,7 @@ def make_ba_problem(
 
 # --- The five config presets -------------------------------------------------
 
-def config1_gs_small(scale=1.0, seed=0, dtype=torch.float64, device="cpu"):
+def config1_gs_small(scale=1.0, seed=0, dtype=torch.float64, device=None):
     """Global-shutter pinhole BA, 50 cams / 5k pts."""
     return make_ba_problem(
         n_poses=max(int(50 * scale), 4), n_points=max(int(5000 * scale), 50),
@@ -273,7 +275,7 @@ def config1_gs_small(scale=1.0, seed=0, dtype=torch.float64, device="cpu"):
         name="gs_small")
 
 
-def config2_gs_bal(scale=1.0, seed=0, dtype=torch.float64, device="cpu"):
+def config2_gs_bal(scale=1.0, seed=0, dtype=torch.float64, device=None):
     """GS + distortion, BAL-style ~100 cams / 50k pts (its dense_schur
     engine is not ported yet: ROADMAP.md, Queue 1)."""
     return make_ba_problem(
@@ -285,7 +287,7 @@ def config2_gs_bal(scale=1.0, seed=0, dtype=torch.float64, device="cpu"):
         name="gs_bal")
 
 
-def config3_rs_video(scale=1.0, seed=0, dtype=torch.float64, device="cpu"):
+def config3_rs_video(scale=1.0, seed=0, dtype=torch.float64, device=None):
     """Rolling-shutter linear interpolation, 200-frame video sequence."""
     n_frames = max(int(200 * scale), 4)
     return make_ba_problem(
@@ -296,7 +298,7 @@ def config3_rs_video(scale=1.0, seed=0, dtype=torch.float64, device="cpu"):
         name="rs_video_linear")
 
 
-def config4_rs_slerp(scale=1.0, seed=0, dtype=torch.float64, device="cpu"):
+def config4_rs_slerp(scale=1.0, seed=0, dtype=torch.float64, device=None):
     """RS SLERP + distortion, 1k cams / 100k pts, robust Huber loss."""
     n_frames = max(int(1000 * scale), 4)
     return make_ba_problem(
@@ -308,7 +310,7 @@ def config4_rs_slerp(scale=1.0, seed=0, dtype=torch.float64, device="cpu"):
         name="rs_slerp_robust")
 
 
-def config5_rs_large(scale=1.0, seed=0, dtype=torch.float32, device="cpu"):
+def config5_rs_large(scale=1.0, seed=0, dtype=torch.float32, device=None):
     """Multi-host-scale RS BA, 10k cams / 1M pts."""
     n_frames = max(int(10000 * scale), 8)
     return make_ba_problem(

@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import default_device
 from ..geometry import CameraModel, Loss
 
 #: tangent dims per pose block (3 rotation + 3 translation)
@@ -175,16 +176,19 @@ def validate_problem(problem: Problem) -> None:
 _OBS_INT = ("pose_a", "pose_b", "intr_idx", "point")
 
 
-def params_from_numpy(src, *, device="cpu", dtype=torch.float64) -> Params:
+def params_from_numpy(src, *, device=None, dtype=torch.float64) -> Params:
     """Params from any object with q/c/intr/points array fields."""
+    device = default_device(device)
     return Params(*(torch.as_tensor(np.array(getattr(src, f)),
                                     dtype=dtype, device=device)
                     for f in ("q", "c", "intr", "points")))
 
 
-def problem_from_numpy(src, *, device="cpu", dtype=torch.float64) -> Problem:
+def problem_from_numpy(src, *, device=None, dtype=torch.float64) -> Problem:
     """Problem from any object with this module's Problem field names
     (obs.uv …, pose_free …, model, loss)."""
+    device = default_device(device)
+
     def arr(a, dt):
         return torch.as_tensor(np.array(a), dtype=dt, device=device)
 

@@ -61,8 +61,10 @@ class Case:
         self.name = name
         self.ba = _fixture(name)
         self.jplan = jwindow.build_window_plan(self.ba.problem)
-        self.problem = ttypes.problem_from_numpy(self.ba.problem)
-        self.params0 = ttypes.params_from_numpy(self.ba.params0)
+        self.problem = ttypes.problem_from_numpy(self.ba.problem,
+                                                 device="cpu")
+        self.params0 = ttypes.params_from_numpy(self.ba.params0,
+                                                device="cpu")
         self.plan = twindow.build_window_plan(self.problem)
         self.statics = banded_fused.kernel_statics(self.plan, self.problem)
         self.params = banded_fused.to_internal(self.params0, self.plan)
@@ -160,6 +162,75 @@ def test_cuda_kernel_raises_on_cpu_tensors(case):
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         solve(case.problem, case.params0,
               SolverOptions(evaluator="cuda", max_iterations=2))
+
+
+def test_default_device_is_the_card():
+    """Without a device the entry points take the card and raise where
+    there is none; ``device="cpu"`` asks for the CPU."""
+    import rsba_tpu_torch
+    from rsba_tpu_torch.problem import synthetic as tsyn
+    assert rsba_tpu_torch.default_device("cpu") == torch.device("cpu")
+    ba = _fixture("gs")
+    tiny = dict(n_poses=5, n_points=20, track_len=3)
+    calls = [lambda **kw: tsyn.make_ba_problem(**tiny, **kw),
+             lambda **kw: ttypes.params_from_numpy(ba.params0, **kw),
+             lambda **kw: ttypes.problem_from_numpy(ba.problem, **kw)]
+    calls += [lambda f=f, **kw: f(scale=0.001, **kw)
+              for f in tsyn.CONFIGS.values()]
+    assert len(calls) == 8
+    if torch.cuda.is_available():
+        assert rsba_tpu_torch.default_device().type == "cuda"
+        assert calls[0]().problem.device.type == "cuda"
+        assert calls[1]().device.type == "cuda"
+        assert calls[2]().device.type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                call()
+    assert calls[0](device="cpu").problem.device.type == "cpu"
+    assert calls[1](device="cpu").device.type == "cpu"
+    assert calls[2](device="cpu").device.type == "cpu"
+
+
+# (W, G, itemsize, rolling shutter) -> (threads, tile columns, chunks)
+LAUNCH_PLANS = [
+    ((11, 112, 4, True), (128, 112, 1)),    # config 4: the whole row
+    ((11, 112, 8, True), (128, 112, 1)),
+    ((4, 24, 8, True), (32, 24, 1)),
+    ((5, 40, 8, True), (64, 40, 1)),
+    ((3, 16, 8, False), (32, 16, 1)),
+    ((5, 352, 8, True), (128, 128, 3)),     # wider than a block: chunks
+    ((24, 1024, 4, True), (96, 96, 11)),    # widest window: narrower tile
+    ((24, 1024, 8, True), (32, 32, 32)),
+]
+
+
+@pytest.mark.parametrize("shape,want", LAUNCH_PLANS)
+def test_launch_plan_routes(shape, want):
+    W, G, itemsize, rs = shape
+    plan = fused.launch_plan(W, G, itemsize, rs)
+    assert (plan.threads, plan.tile_cols, plan.chunks) == want
+    assert plan.threads % 32 == 0 and plan.threads <= fused.MAX_THREADS
+    assert plan.tile_cols == min(plan.threads, G)
+    assert plan.chunks * plan.threads >= G > (plan.chunks - 1) * plan.threads
+    assert plan.smem_bytes == fused.smem_bytes(W, plan.threads,
+                                               plan.tile_cols, itemsize, rs)
+    assert plan.smem_bytes <= fused.SMEM_BLOCK
+    assert plan.blocks_per_sm >= 1
+
+
+def test_launch_plan_and_wrapper_raise_on_shapes_they_cannot_take(case):
+    with pytest.raises(ValueError, match="does not fit"):
+        fused.launch_plan(80, 112, 8, True)
+    inp = list(case.kernel_inputs())
+    model, loss = case.problem.model, case.problem.loss
+    wide = [x.repeat_interleave(fused.MAX_G // case.plan.G + 1, dim=-1)
+            if i in (1, 2, 3, 4, 5, 6, 7) else x for i, x in enumerate(inp)]
+    with pytest.raises(ValueError, match="points per row"):
+        fused._run(None, 0, *(x.contiguous() for x in wide), model, loss)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        fused._run(None, 0, inp[0].transpose(0, 1).contiguous()
+                   .transpose(0, 1), *inp[1:], model, loss)
 
 
 @pytest.mark.slow

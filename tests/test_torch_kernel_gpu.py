@@ -3,9 +3,11 @@
 Needs a card (``gpu`` marker; skipped without one).  The fixtures are
 ``chip_smoke.fixtures()``: one small problem per kernel specialisation.
 Float64 must agree at rtol = atol = 1e-9; float32 within 1e-4·max|ref|
-per output, since the kernel's shared-memory atomics sum in another
-order.  The file imports neither jax nor rsba_tpu, so it also runs on a
-machine without them (from the repo root):
+per output, since the kernel's warp reductions sum in another order than
+the plain version.  Also on the card: the chunked route (rows wider than
+one shared-memory tile), pose_b == pose_a on part of the slots, and equal
+bits from two launches.  The file imports neither jax nor rsba_tpu, so it
+also runs on a machine without them (from the repo root):
 
     python -m pytest --noconftest -o addopts= tests/test_torch_kernel_gpu.py
 """
@@ -37,3 +39,30 @@ def test_cuda_kernel_matches_plain_version(name, dtype):
         chip_smoke.compare(name, ba, rtol=1e-9, atol=1e-9)
     else:
         chip_smoke.compare(name, ba, rel_to_max=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["chunked", "same_pose"])
+def test_cuda_kernel_routes(route):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    if route == "chunked":
+        ba = synthetic.make_ba_problem(dtype=torch.float64, device="cuda",
+                                       **chip_smoke.chunked_fixture())
+        chip_smoke.compare(route, ba, rtol=1e-9, atol=1e-9)
+    else:
+        ba = synthetic.make_ba_problem(
+            dtype=torch.float64, device="cuda",
+            **chip_smoke.fixtures()["flagship_slerp_dist_huber"])
+        chip_smoke.compare(route, ba, rtol=1e-9, atol=1e-9,
+                           edit=chip_smoke.same_pose_on_some_slots)
+
+
+@pytest.mark.gpu
+def test_two_launches_give_equal_bits():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    ba = synthetic.make_ba_problem(
+        dtype=torch.float32, device="cuda",
+        **chip_smoke.fixtures()["flagship_slerp_dist_huber"])
+    chip_smoke.check_equal_bits(ba)

@@ -33,8 +33,8 @@ def flagship():
 def test_tiny_solve_matches_reference(flagship):
     _, sj = jlm.solve(flagship.problem, flagship.params0,
                       JOptions(evaluator="xla", device_loop="off", **KW))
-    problem = ttypes.problem_from_numpy(flagship.problem)
-    params0 = ttypes.params_from_numpy(flagship.params0)
+    problem = ttypes.problem_from_numpy(flagship.problem, device="cpu")
+    params0 = ttypes.params_from_numpy(flagship.params0, device="cpu")
     params, st = solve(problem, params0, SolverOptions(**KW))
     assert (st.linear_solver, st.evaluator) == ("banded_schur", "torch")
     assert st.termination == sj.termination == "CONVERGENCE"
@@ -50,7 +50,7 @@ def test_tiny_solve_matches_reference(flagship):
 
 def test_readme_usage_converges():
     """The README's Python usage with the package name changed."""
-    ba = tsyn.CONFIGS["rs_slerp_robust"](scale=0.01)
+    ba = tsyn.CONFIGS["rs_slerp_robust"](scale=0.01, device="cpu")
     calls = []
     params, s = solve(ba.problem, ba.params0, SolverOptions(),
                       callback=lambda i, p, it: calls.append(i))
@@ -72,15 +72,15 @@ def test_readme_usage_converges():
 ], ids=["dogleg", "dense_schur", "iterative_schur", "cluster_jacobi",
         "device_loop_on", "bad_evaluator"])
 def test_unported_options_raise(flagship, opts, err):
-    problem = ttypes.problem_from_numpy(flagship.problem)
-    params0 = ttypes.params_from_numpy(flagship.params0)
+    problem = ttypes.problem_from_numpy(flagship.problem, device="cpu")
+    params0 = ttypes.params_from_numpy(flagship.params0, device="cpu")
     with pytest.raises(err):
         solve(problem, params0, SolverOptions(max_iterations=2, **opts))
 
 
 def test_flat_problem_raises_not_implemented():
     """gs_bal's optimizable intrinsics need the flat engines."""
-    ba = tsyn.CONFIGS["gs_bal"](scale=0.04)
+    ba = tsyn.CONFIGS["gs_bal"](scale=0.04, device="cpu")
     with pytest.raises(NotImplementedError, match="window layout"):
         make_solver_fns(ba.problem, SolverOptions())
     with pytest.raises(ValueError, match="window/track structure"):

@@ -21,7 +21,8 @@ OBS_FIELDS = ("uv", "t", "pose_a", "pose_b", "intr_idx", "point", "mask")
 def pair(request):
     name, scale = request.param
     ja = jsyn.CONFIGS[name](scale=scale, seed=1, dtype=jnp.float64)
-    tb = tsyn.CONFIGS[name](scale=scale, seed=1, dtype=torch.float64)
+    tb = tsyn.CONFIGS[name](scale=scale, seed=1, dtype=torch.float64,
+                            device="cpu")
     return ja, tb
 
 
@@ -58,8 +59,8 @@ def test_params_and_masks_match_reference(pair):
 
 def test_numpy_bridge_round_trip(pair):
     ja, tb = pair
-    prob = ttypes.problem_from_numpy(ja.problem)
-    params = ttypes.params_from_numpy(ja.params0)
+    prob = ttypes.problem_from_numpy(ja.problem, device="cpu")
+    params = ttypes.params_from_numpy(ja.params0, device="cpu")
     for f in OBS_FIELDS:
         _close(getattr(prob.obs, f), getattr(ja.problem.obs, f))
     back = ttypes.to_numpy(params)

@@ -22,7 +22,8 @@ CASES = [("rs_slerp_robust", 0.01), ("gs_small", 0.05)]
 def pair(request):
     name, scale = request.param
     ja = jsyn.CONFIGS[name](scale=scale, seed=1, dtype=jnp.float64)
-    tb = tsyn.CONFIGS[name](scale=scale, seed=1, dtype=torch.float64)
+    tb = tsyn.CONFIGS[name](scale=scale, seed=1, dtype=torch.float64,
+                            device="cpu")
     return ja, tb
 
 
@@ -72,5 +73,6 @@ def test_window_plan_ops_match_reference(pair):
 
 
 def test_plan_rejects_optimizable_intrinsics():
-    tb = tsyn.CONFIGS["gs_bal"](scale=0.04, seed=1, dtype=torch.float64)
+    tb = tsyn.CONFIGS["gs_bal"](scale=0.04, seed=1, dtype=torch.float64,
+                                device="cpu")
     assert twin.build_window_plan(tb.problem) is None
