@@ -18,10 +18,19 @@ Phases, each raising on failure (exit code 1):
    giving equal bits, the kernel's bound from the shapes, and the
    kernel's and the plain version's times;
 3. config 4 (rs_slerp_robust, 1,001 poses, 100k points) at full size in
-   float32 through ``rsba_tpu_torch.solver.solve``: the engine must be
-   banded_schur/cuda, every prepare must launch the kernel, the solve
-   must converge to within 0.002 px of the float64 inlier-RMSE anchor;
-4. config 3 (rs_video_linear) at full size, the same way.
+   float32 through ``rsba_tpu_torch.solver.solve`` with the default
+   options, which is the on-device loop replayed from CUDA graphs: the
+   engine must be banded_schur/cuda+device_loop, every prepare must
+   launch the kernel (a graph replay counts the launches it holds), the
+   host must read back no more than one tensor per attempt and block,
+   and the solve must converge to within 0.002 px of the float64
+   inlier-RMSE anchor; a second solve on the same graphs must take the
+   same accept/reject sequence; then the same problem through the host
+   loop (``device_loop="off"``), with both walls side by side;
+4. config 3 (rs_video_linear) at full size through the loop, and once
+   more with ``preconditioner="cluster_jacobi"``;
+5. config 1 (gs_small, ``dense``, and again with dogleg) and config 2
+   (gs_bal, ``dense_schur``) at full size in float32, to their anchors.
 
 The last two lines are a JSON record of the kernels and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -36,7 +45,8 @@ import time
 
 # float64 CPU anchors of the final inlier RMSE (px),
 # benchmarks/baselines/cpu_config4.json and ROADMAP.md.
-RMSE_ANCHOR = {"rs_slerp_robust": 0.79695, "rs_video_linear": 0.65990}
+RMSE_ANCHOR = {"rs_slerp_robust": 0.79695, "rs_video_linear": 0.65990,
+               "gs_small": 0.63709, "gs_bal": 0.64874}
 RMSE_TOL = 0.002
 N_OBS_CONFIG4 = 910092        # benchmarks/SCALING.json, float64 generator
 KERNEL_SOURCE = "rsba_tpu_torch/csrc/fused_evaluate_assemble.cu"
@@ -271,74 +281,107 @@ def time_prepares(ba, n_kernel=20, n_plain=3):
     return t
 
 
-def solve_config(name, card):
-    """Full-size float32 solve through the port's public entry point;
-    returns (kernel launches, observations)."""
+def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
+    """Full-size float32 solve through the port's public entry point,
+    held to its engine, its termination and its RMSE anchor.  Returns a
+    dict with the problem, the phase functions, the Summary, the kernel
+    launches and the wall time."""
     import torch
     from rsba_tpu_torch.kernels import fused
     from rsba_tpu_torch.problem import synthetic
     from rsba_tpu_torch.solver import SolverOptions, make_solver_fns, solve
 
-    t0 = time.perf_counter()
-    ba = synthetic.CONFIGS[name](scale=1.0, dtype=torch.float32,
-                                 device="cuda")
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    n_obs = int(ba.problem.obs.mask.sum())
-    opts = SolverOptions(preconditioner="schur_jacobi",
-                         max_cg_iterations=100, cg_eta=1e-2,
-                         max_iterations=60)
-    t0 = time.perf_counter()
-    fns = make_solver_fns(ba.problem, opts)
-    build_s = time.perf_counter() - t0
+    opts = SolverOptions(max_iterations=60, **option_kw)
+    if ba is None:
+        t0 = time.perf_counter()
+        ba = synthetic.CONFIGS[name](scale=1.0, dtype=torch.float32,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        log(f"{name} [{card}]: n_obs {int(ba.problem.obs.mask.sum())}, poses "
+            f"{ba.problem.pose_free.numel()}, points "
+            f"{ba.problem.point_free.numel()}, generate "
+            f"{time.perf_counter() - t0:.2f} s")
+    if fns is None:
+        t0 = time.perf_counter()
+        fns = make_solver_fns(ba.problem, opts)
+        log(f"{name} {tag} [{card}]: plan+engine build "
+            f"{time.perf_counter() - t0:.2f} s")
+    looped = opts.device_loop != "off" and "raw" in fns
+    banded = fns["engine"][0] == "banded_schur"
     prepares = [0]
-    inner = fns["prepare"]
+    if looped:
+        # The loop's runner counts its own prepares (block entries,
+        # re-prepares and the warm-up before a capture).
+        count_prepares = lambda: sum(  # noqa: E731
+            r.prepares for r in fns.get("_device_runners", {}).values())
+    else:
+        inner = fns["prepare"]
 
-    def counted_prepare(p):
-        prepares[0] += 1
-        return inner(p)
+        def counted_prepare(p):
+            prepares[0] += 1
+            return inner(p)
 
-    fns["prepare"] = counted_prepare
+        fns = dict(fns, prepare=counted_prepare)
+        count_prepares = lambda: prepares[0]  # noqa: E731
+    before = count_prepares()
     torch.cuda.reset_peak_memory_stats()
     fused.fused_evaluate_assemble_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     params, s = solve(ba.problem, ba.params0, opts, fns=fns)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = fused.fused_evaluate_assemble_cuda.launches
+    n_prep = count_prepares() - before
     mem = torch.cuda.max_memory_allocated()
-    n_it = s.num_iterations
-    log(f"{name} [{card}]: n_obs {n_obs}, poses {ba.problem.pose_free.numel()}"
-        f", points {ba.problem.point_free.numel()}, generate {gen_s:.2f} s, "
-        f"plan+engine build {build_s:.2f} s")
-    log(f"{name} [{card}]: engine {s.linear_solver}/{s.evaluator}, "
-        f"{s.termination} ({s.message}), LM iterations {n_it} "
-        f"({s.num_successful_steps} accepted), prepares {prepares[0]}, "
-        f"kernel launches {launches}")
-    log(f"{name} [{card}]: cost {s.initial_cost:.6e} -> {s.final_cost:.6e}, "
-        f"inlier RMSE {s.final_rmse_inlier:.5f} px (anchor "
-        f"{RMSE_ANCHOR[name]}), solve wall {s.total_time:.3f} s, "
-        f"{s.total_time / max(n_it, 1) * 1e3:.2f} ms per LM iteration, "
-        f"evaluation {s.evaluation_time:.3f} s, linear solver "
+    seq = "".join("A" if it.accepted else "r" for it in s.iterations)
+    cg = sum(it.linear_solver_iterations for it in s.iterations)
+    log(f"{name} {tag} [{card}]: engine {s.linear_solver}/{s.evaluator}, "
+        f"{s.termination} ({s.message}), valid attempts {s.num_iterations} "
+        f"({s.num_successful_steps} accepted) {seq}, CG iterations {cg}, "
+        f"prepares {n_prep}, kernel launches {launches}, host read-backs "
+        f"{s.host_reads}")
+    log(f"{name} {tag} [{card}]: cost {s.initial_cost:.6e} -> "
+        f"{s.final_cost:.6e}, inlier RMSE {s.final_rmse_inlier:.5f} px "
+        f"(anchor {RMSE_ANCHOR[name]}), solve wall {wall:.3f} s, evaluation "
+        f"{s.evaluation_time:.3f} s, linear solver "
         f"{s.linear_solver_time:.3f} s, max_memory_allocated "
         f"{mem / 2**30:.3f} GiB")
 
-    if (s.linear_solver, s.evaluator) != ("banded_schur", "cuda"):
-        raise AssertionError(f"{name}: engine {s.linear_solver}/"
-                             f"{s.evaluator}, want banded_schur/cuda")
-    if not (launches > 0 and launches == prepares[0]):
-        raise AssertionError(f"{name}: {launches} kernel launches for "
-                             f"{prepares[0]} prepares")
+    want = ("cuda" if banded else "torch-flat"
+            + ("-dogleg" if opts.trust_region_strategy == "dogleg" else ""))
+    want += "+device_loop" if looped else ""
+    if s.evaluator != want:
+        raise AssertionError(f"{name} {tag}: evaluator {s.evaluator}, want "
+                             f"{want}")
+    if banded and not (launches > 0 and launches == n_prep):
+        raise AssertionError(f"{name} {tag}: {launches} kernel launches for "
+                             f"{n_prep} prepares")
+    if looped:
+        blocks = 1
+        # One tensor per attempt (invalid attempts leave no record, and one
+        # attempt may follow a termination that a prepare set) and one per
+        # block.
+        invalid = max(n_prep - s.num_successful_steps, 0)
+        budget = s.num_iterations + invalid + blocks + 1
+        if not 0 < s.host_reads <= budget:
+            raise AssertionError(f"{name} {tag}: {s.host_reads} host "
+                                 f"read-backs, budget {budget}")
     if s.termination != "CONVERGENCE":
-        raise AssertionError(f"{name}: {s.termination} ({s.message})")
+        raise AssertionError(f"{name} {tag}: {s.termination} ({s.message})")
     if abs(s.final_rmse_inlier - RMSE_ANCHOR[name]) > RMSE_TOL:
-        raise AssertionError(f"{name}: inlier RMSE {s.final_rmse_inlier} "
-                             f"not within {RMSE_TOL} of {RMSE_ANCHOR[name]}")
+        raise AssertionError(f"{name} {tag}: inlier RMSE "
+                             f"{s.final_rmse_inlier} not within {RMSE_TOL} "
+                             f"of {RMSE_ANCHOR[name]}")
     for f in ("q", "c", "intr", "points"):
         x = getattr(params, f)
         if not torch.isfinite(x).all():
-            raise AssertionError(f"{name}: non-finite {f}")
-    if tuple(params.points.shape) != tuple(ba.params0.points.shape):
-        raise AssertionError(f"{name}: points shape {params.points.shape}")
-    return launches, n_obs
+            raise AssertionError(f"{name} {tag}: non-finite {f}")
+        if tuple(x.shape) != tuple(getattr(ba.params0, f).shape):
+            raise AssertionError(f"{name} {tag}: {f} shape {x.shape}")
+    return {"ba": ba, "fns": fns, "summary": s, "launches": launches,
+            "wall": wall, "seq": seq, "cg": cg,
+            "n_obs": int(ba.problem.obs.mask.sum())}
 
 
 def main() -> int:
@@ -409,20 +452,55 @@ def main() -> int:
     del ba4
     torch.cuda.empty_cache()
 
-    # --- 3. config 4, the main path ----------------------------------------
-    launches, n_obs = solve_config("rs_slerp_robust", card)
-    if abs(n_obs - N_OBS_CONFIG4) > 0.001 * N_OBS_CONFIG4:
-        raise AssertionError(f"config 4 has {n_obs} observations, "
+    # --- 3. config 4, the main path: the captured loop ----------------------
+    first = solve_config("rs_slerp_robust", card, "captured loop #1")
+    if abs(first["n_obs"] - N_OBS_CONFIG4) > 0.001 * N_OBS_CONFIG4:
+        raise AssertionError(f"config 4 has {first['n_obs']} observations, "
                              f"want about {N_OBS_CONFIG4}")
+    if first["summary"].linear_solver != "banded_schur":
+        raise AssertionError("config 4 did not resolve to banded_schur")
+    again = solve_config("rs_slerp_robust", card, "captured loop #2",
+                         ba=first["ba"], fns=first["fns"])
+    if again["seq"] != first["seq"]:
+        raise AssertionError(
+            f"two looped config-4 solves differ: {first['seq']} then "
+            f"{again['seq']}")
+    log(f"two looped config-4 solves: the same {len(first['seq'])} valid "
+        f"attempts {first['seq']}  OK")
+    host = solve_config("rs_slerp_robust", card, "host loop",
+                        ba=first["ba"], device_loop="off")
+    log(f"rs_slerp_robust [{card}]: captured loop {again['wall']:.3f} s "
+        f"({first['wall']:.3f} s with warm-up and capture) against host "
+        f"loop {host['wall']:.3f} s; sequences {again['seq']} / "
+        f"{host['seq']}; CG iterations {again['cg']} / {host['cg']}")
+    launches, launches_host = again["launches"], host["launches"]
+    del first, again, host
     torch.cuda.empty_cache()
 
     # --- 4. config 3 --------------------------------------------------------
-    solve_config("rs_video_linear", card)
+    c3 = solve_config("rs_video_linear", card, "captured loop")
+    c3c = solve_config("rs_video_linear", card, "cluster_jacobi",
+                       ba=c3["ba"], preconditioner="cluster_jacobi")
+    log(f"rs_video_linear [{card}]: summed CG iterations schur_jacobi "
+        f"{c3['cg']}, cluster_jacobi {c3c['cg']}; walls {c3['wall']:.3f} s, "
+        f"{c3c['wall']:.3f} s")
+    del c3, c3c
+    torch.cuda.empty_cache()
+
+    # --- 5. configs 1 and 2: the flat engines -------------------------------
+    c1 = solve_config("gs_small", card, "dense", linear_solver="dense")
+    solve_config("gs_small", card, "dense+dogleg", ba=c1["ba"],
+                 linear_solver="dense", trust_region_strategy="dogleg")
+    del c1
+    torch.cuda.empty_cache()
+    solve_config("gs_bal", card, "dense_schur", linear_solver="dense_schur")
+    torch.cuda.empty_cache()
 
     log(json.dumps({"kernels": [{
         "name": "fused_evaluate_assemble", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches, "launches_per_solve": launches,
+        "launches_host_loop": launches_host,
         "max_abs_err": err4,
         "ms": times["kernel"], "plain_ms": times["plain"],
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],

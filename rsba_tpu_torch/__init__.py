@@ -5,11 +5,14 @@ mirror ``rsba_tpu`` so each counterpart is easy to find; the JAX package
 stays the reference every ported part is tested against.  This package
 imports ``torch`` and never ``jax``.
 
-The ported slice is the banded window solver (``linear_solver="auto"``
-on video-style problems): geometry, problem types, the synthetic
-generator, the window plan, the banded Schur engine and the fused
-evaluate+assemble kernel (``kernels/fused.py``, CUDA source in
-``csrc/``).
+Ported so far: geometry, problem types, the synthetic generator, and the
+whole solver: the banded window engine (``linear_solver="auto"`` on
+video-style problems) with the fused evaluate+assemble kernel
+(``kernels/fused.py``, CUDA source in ``csrc/``), the flat ``dense``,
+``dense_schur`` and ``iterative_schur`` engines, the Schur-Jacobi and
+cluster-Jacobi preconditioners, dogleg, and the on-device LM loop
+(``solver/lm_device.py``), which on a CUDA problem is replayed from CUDA
+graphs.
 """
 
 __version__ = "0.1.0"

@@ -276,8 +276,8 @@ def config1_gs_small(scale=1.0, seed=0, dtype=torch.float64, device=None):
 
 
 def config2_gs_bal(scale=1.0, seed=0, dtype=torch.float64, device=None):
-    """GS + distortion, BAL-style ~100 cams / 50k pts (its dense_schur
-    engine is not ported yet: ROADMAP.md, Queue 1)."""
+    """GS + distortion, BAL-style ~100 cams / 50k pts, per-camera
+    optimizable [f, k1, k2] intrinsics (the ``dense_schur`` preset)."""
     return make_ba_problem(
         n_poses=max(int(100 * scale), 4),
         n_points=max(int(50000 * scale), 100),

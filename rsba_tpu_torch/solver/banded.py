@@ -239,47 +239,107 @@ def assemble(ev: WEvaluation, plan: WindowPlan) -> BandAssembly:
 
 # --- band operators ----------------------------------------------------------
 
-def _band_shift(x: torch.Tensor, W: int) -> torch.Tensor:
-    """(P, ...) → (P, W, ...) with out[p, d] = x[p + d] (zero padded)."""
-    P = x.shape[0]
-    xp = torch.cat([x, x.new_zeros((W,) + tuple(x.shape[1:]))], dim=0)
-    idx = (torch.arange(P, device=x.device)[:, None]
-           + torch.arange(W, device=x.device)[None, :])
-    return xp[idx]
+#: poses per dense segment of the band's cluster_jacobi preconditioner
+CLUSTER_SEGMENT = 16
 
 
-def make_band_preconditioner(S_band: torch.Tensor, kind: str):
+def make_band_preconditioner(S_band: torch.Tensor, kind: str,
+                             segment: int = CLUSTER_SEGMENT):
     """Preconditioner for PCG on the banded S.
 
     kind = "schur_jacobi" (alias "jacobi"): per-pose 6×6 diagonal blocks
     (Ceres SCHUR_JACOBI), inverted in closed form.
+
+    kind = "cluster_jacobi": contiguous ``segment``-pose blocks of the
+    band, each factored dense.  On a trajectory the clusters of
+    co-visible cameras are contiguous pose segments, so the cluster
+    preconditioner is a block-diagonal-by-segment slice of the band: it
+    keeps all coupling within a segment and drops only the terms across
+    a boundary.  One batched (6·segment)² Cholesky per solve step and a
+    batched Cholesky solve per CG iteration.
     """
-    if kind not in ("jacobi", "schur_jacobi"):
-        raise NotImplementedError(
-            f"preconditioner {kind!r} is not ported yet "
-            "(ROADMAP.md, Queue 1: cluster_jacobi)")
-    from .schur import invert_6x6_psd
-    P = S_band.shape[0]
-    Minv = invert_6x6_psd(S_band[:, 0])
+    P, W = S_band.shape[0], S_band.shape[1]
+    if kind in ("jacobi", "schur_jacobi"):
+        from .schur import invert_6x6_psd
+        Minv = invert_6x6_psd(S_band[:, 0])
+
+        def apply(r_flat):
+            return torch.bmm(Minv, r_flat.reshape(P, POSE_DOF, 1)).reshape(-1)
+
+        return apply
+    if kind != "cluster_jacobi":
+        raise ValueError(kind)
+
+    from .pcg import batched_cho_solve, batched_cholesky
+    K = min(segment, P)
+    nseg = -(-P // K)
+    D = K * POSE_DOF
+    L = batched_cholesky(band_segments(S_band, K))
+    n_pad = nseg * D - P * POSE_DOF
 
     def apply(r_flat):
-        r = r_flat.reshape(P, POSE_DOF)
-        return torch.einsum("pab,pb->pa", Minv, r).reshape(-1)
+        r = torch.cat([r_flat, r_flat.new_zeros((n_pad,))]).reshape(nseg, D)
+        return batched_cho_solve(L, r).reshape(-1)[:P * POSE_DOF]
 
     return apply
 
 
-def band_matvec(S_band: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """q = S·x for the symmetric banded S.  x, q: (P, 6).
+def band_segments(S_band: torch.Tensor, K: int) -> torch.Tensor:
+    """Dense (nseg, 6K, 6K) diagonal segments of the symmetric band:
+    block (i, j) of a segment is S_band[p_i, j − i] for 0 ≤ j − i < W, its
+    transpose below the diagonal, zero elsewhere.  Rows past the last
+    pose get identity diagonal blocks."""
+    P, W = S_band.shape[0], S_band.shape[1]
+    nseg = -(-P // K)
+    dev = S_band.device
+    pad = S_band.new_zeros((nseg * K - P, W, POSE_DOF, POSE_DOF))
+    pad[:, 0] = torch.eye(POSE_DOF, dtype=S_band.dtype, device=dev)
+    Sp = torch.cat([S_band, pad]).reshape(nseg, K, W, POSE_DOF, POSE_DOF)
+    ar = torch.arange(K, device=dev)
+    d = ar[None, :] - ar[:, None]                               # j − i
+    upper = Sp[:, ar[:, None], d.clamp(0, W - 1)]    # (nseg, K, K, 6, 6)
+    in_band = ((d >= 0) & (d < W)).to(S_band.dtype)[None, :, :, None, None]
+    strict = (d > 0).to(S_band.dtype)[None, :, :, None, None]
+    upper = upper * in_band
+    M = upper + (upper * strict).permute(0, 2, 1, 4, 3)
+    D = K * POSE_DOF
+    return M.permute(0, 1, 3, 2, 4).reshape(nseg, D, D)
+
+
+def band_rows(S_band: torch.Tensor):
+    """The symmetric banded S as dense block rows.
 
     S_band stores the upper band: S[p, p+d] = S_band[p, d], d ∈ [0, W).
+    Returns ``rows`` (P, 6, (2W−1)·6), pose p's row of S over its 2W−1
+    neighbours (the W at and above it, then the W−1 below, blocks beyond
+    either end zero), and ``nbr`` (P, 2W−1), the pose of each block column
+    (clamped into range where the block is zero).
     """
     P, W = S_band.shape[0], S_band.shape[1]
-    up = torch.einsum("pdab,pdb->pa", S_band, _band_shift(x, W))
-    # down[p] = Σ_{d≥1} S_band[p−d, d]ᵀ x[p−d]
-    z = torch.einsum("pdab,pa->pdb", S_band, x)      # z[p, d] = S[p,d]ᵀx[p]
-    zpad = torch.cat([z.new_zeros((W,) + tuple(z.shape[1:])), z], dim=0)
-    d = torch.arange(W, device=x.device)
-    idx = torch.arange(P, device=x.device)[:, None] + W - d[None, :]
-    down = zpad[idx, d[None, :]][:, 1:].sum(dim=1)
-    return up + down
+    dev = S_band.device
+    p = torch.arange(P, device=dev)[:, None]
+    d_up = torch.arange(W, device=dev)[None, :]
+    d_dn = torch.arange(1, W, device=dev)[None, :]
+    up = S_band * (p + d_up < P).to(S_band.dtype)[:, :, None, None]
+    # S[p, p−d] = S_band[p−d, d]ᵀ
+    below = S_band[(p - d_dn).clamp(min=0), d_dn].transpose(-1, -2)
+    below = below * (p - d_dn >= 0).to(S_band.dtype)[:, :, None, None]
+    blocks = torch.cat([up, below], dim=1)            # (P, 2W−1, 6, 6)
+    nbr = torch.cat([p + d_up, p - d_dn], dim=1).clamp(0, P - 1)
+    rows = blocks.permute(0, 2, 1, 3).reshape(P, POSE_DOF,
+                                              (2 * W - 1) * POSE_DOF)
+    return rows, nbr
+
+
+def make_band_matvec(S_band: torch.Tensor):
+    """q = S·x for the symmetric banded S, x and q flat (P·6,): the block
+    rows are laid out once, and a product is one gather of x's
+    neighbours and one batched matrix-vector product."""
+    rows, nbr = band_rows(S_band)
+    P = S_band.shape[0]
+
+    def matvec(x_flat: torch.Tensor) -> torch.Tensor:
+        xn = x_flat.reshape(P, POSE_DOF)[nbr].reshape(P, -1, 1)
+        return torch.bmm(rows, xn).reshape(-1)
+
+    return matvec

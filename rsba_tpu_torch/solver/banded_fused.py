@@ -10,7 +10,10 @@ layout, where per-point quantities carry the point axis G last:
 
 Internal parameter layout: points as (NR, 3, G) planes.  The pairwise
 cost decrease always differences two passes of the same plain residual
-path (``banded.residuals_raw``), never the kernel against it.
+path (``banded.residuals_raw``), never the kernel against it; the
+on-device loop carries the per-slot ρ of the accepted parameters
+(``rho_slots``), so an attempt costs one residual pass
+(``cost_decrease_pair``).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from .pcg import pcg
 from .schur import _lm_scaled_damp
 from .window import WindowPlan
 
-C6_DIAG = list(fused.C6_DIAG)
+C6_DIAG = fused.C6_DIAG
 C6_PAIRS = fused.C6_PAIRS
 
 #: packed symmetric component index for (x, y) pairs
@@ -71,8 +74,23 @@ def invert_sym3_planes(c6: torch.Tensor) -> torch.Tensor:
 
 def _sym_full(c6: torch.Tensor) -> torch.Tensor:
     """(NR, 6, G) packed symmetric → (NR, 3, 3, G) full."""
-    idx = [[_C6_AT[(x, y)] for y in range(3)] for x in range(3)]
-    return c6[:, torch.tensor(idx, device=c6.device)]
+    comp = c6.unbind(1)
+    return torch.stack([torch.stack([comp[_C6_AT[(x, y)]] for y in range(3)],
+                                    dim=1) for x in range(3)], dim=1)
+
+
+def _c6_diag(c6: torch.Tensor) -> torch.Tensor:
+    """Diagonal components of packed symmetric planes: (NR, 3, G).  Built
+    from slices: an index list would be copied from the host at each
+    call, which a CUDA graph capture does not allow."""
+    return torch.stack([c6[:, i] for i in C6_DIAG], dim=1)
+
+
+def _c6_add_diag(c6: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Packed symmetric planes (NR, 6, G) plus a diagonal d (NR, 3, G)."""
+    zero = torch.zeros_like(d[:, 0])
+    return c6 + torch.stack([d[:, 0], zero, zero, d[:, 1], zero, d[:, 2]],
+                            dim=1)
 
 
 def _cinv_apply(c6inv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -165,7 +183,7 @@ def prepare(plan: WindowPlan, problem: Problem, options: SolverOptions,
 
     gmax = torch.maximum(g_cam.abs().max(), g_pt.abs().max())
     d_cam = torch.diagonal(B0, dim1=-2, dim2=-1)     # (P, 6)
-    d_pt = c6[:, C6_DIAG, :]                         # (NR, 3, G)
+    d_pt = _c6_diag(c6)                              # (NR, 3, G)
     if options.jacobi_scaling:
         def scale(d):
             return torch.where(
@@ -192,6 +210,28 @@ def prepare(plan: WindowPlan, problem: Problem, options: SolverOptions,
             "gradient_max_norm": gmax}
 
 
+def rho_slots(plan: WindowPlan, problem: Problem, params: Params):
+    """Per-slot robust costs ρ (NR, G, L) from the plain residual path.
+
+    Both sides of a pairwise cost decrease must come from the same
+    evaluator: the kernel and the plain path differ by round-off per slot,
+    which near convergence is the order of function_tolerance·cost.  The
+    on-device loop seeds ρ_ref here once per block and carries the
+    accepted candidate's ρ forward."""
+    return banded._rho(banded.residuals_raw(_as_v1(params), plan, problem),
+                       problem.loss)
+
+
+def cost_decrease_pair(plan: WindowPlan, problem: Problem, rho_ref,
+                       cand: Params):
+    """(Σ (ρ_ref − ρ_new)/2, ρ_new): one residual pass on the candidate;
+    ρ_ref is the loop-carried ρ of the current parameters."""
+    rho_new = rho_slots(plan, problem, cand)
+    decrease = 0.5 * torch.sum(
+        torch.where(plan.mask > 0, rho_ref - rho_new, 0.0))
+    return decrease, rho_new
+
+
 # --- solve step --------------------------------------------------------------
 
 def schur_band_planes(F, c6inv, B0, B1, lm_cam, plan: WindowPlan):
@@ -203,33 +243,38 @@ def schur_band_planes(F, c6inv, B0, B1, lm_cam, plan: WindowPlan):
     return S
 
 
-def solve_step(plan: WindowPlan, options: SolverOptions, aux: dict,
-               radius: float):
-    """Damped Schur solve: returns (dx, predicted decrease, CG iters)."""
+def reduced_system(plan: WindowPlan, options: SolverOptions, aux: dict,
+                   radius):
+    """The damped reduced camera system of one step: the S_λ band
+    (P, W, 6, 6), its right-hand side b (P, 6), the packed C_λ⁻¹ and the
+    LM diagonals of the camera and point blocks."""
     P = plan.n_poses
     F, c6 = aux["F"], aux["c6"]
-    g_cam, g_pt = aux["g_cam"], aux["g_pt"]
-
     d_cam = torch.diagonal(aux["B0"], dim1=-2, dim2=-1)
     lm_cam, _ = _lm_scaled_damp(d_cam.reshape(-1), radius, options)
     lm_cam = lm_cam.reshape(P, POSE_DOF)
-    d_pt = c6[:, C6_DIAG, :]
+    d_pt = _c6_diag(c6)
     lm_pt, _ = _lm_scaled_damp(d_pt.reshape(-1), radius, options)
     lm_pt = lm_pt.reshape(d_pt.shape)                # (NR, 3, G)
-    c6_l = c6.clone()
-    c6_l[:, C6_DIAG, :] += lm_pt
-    c6inv = invert_sym3_planes(c6_l)
-
+    c6inv = invert_sym3_planes(_c6_add_diag(c6, lm_pt))
     S = schur_band_planes(F, c6inv, aux["B0"], aux["B1"], lm_cam, plan)
     # rhs: b = −g_cam − E C_λ⁻¹ (−g_pt)
-    b = -g_cam - e_apply_planes(F, _cinv_apply(c6inv, -g_pt), plan)
-    precond = banded.make_band_preconditioner(S, options.preconditioner)
+    b = -aux["g_cam"] - e_apply_planes(F, _cinv_apply(c6inv, -aux["g_pt"]),
+                                       plan)
+    return S, b, c6inv, lm_cam, lm_pt
 
-    def matvec(p_flat):
-        return banded.band_matvec(S, p_flat.reshape(P, POSE_DOF)).reshape(-1)
 
-    dc_flat, r_cg, iters = pcg(matvec, precond, b.reshape(-1),
-                               options.max_cg_iterations, options.cg_eta)
+def solve_step(plan: WindowPlan, options: SolverOptions, aux: dict,
+               radius):
+    """Damped Schur solve: returns (dx, predicted decrease, CG iters).
+    ``radius`` is a float or a 0-dim tensor."""
+    P = plan.n_poses
+    F, g_cam, g_pt = aux["F"], aux["g_cam"], aux["g_pt"]
+    S, b, c6inv, lm_cam, lm_pt = reduced_system(plan, options, aux, radius)
+    dc_flat, r_cg, iters = pcg(
+        banded.make_band_matvec(S),
+        banded.make_band_preconditioner(S, options.preconditioner),
+        b.reshape(-1), options.max_cg_iterations, options.cg_eta)
     dc = dc_flat.reshape(P, POSE_DOF)
     # Back-substitute landmarks.
     dp = _cinv_apply(c6inv, -g_pt - et_apply_planes(F, plan.pose_windows(dc)))
@@ -278,7 +323,23 @@ def make_fused_solver_fns(problem: Problem, plan: WindowPlan,
                       and problem.device.type != "cpu"))
     statics = kernel_statics(plan, problem)
     ptf = statics.ptf
+    # Phase closures for the on-device loop (lm_device.py); ``bound`` is
+    # passed back as their first argument.
+    raw = {
+        "bound": (plan, problem),
+        "prepare": lambda b, p: prepare(b[0], b[1], options, p, evaluate,
+                                        statics),
+        "solve_step": lambda b, aux, radius: solve_step(b[0], options, aux,
+                                                        radius),
+        "apply_step": lambda b, p, dx: apply_step(b[0], b[1], p, dx, ptf),
+        "cost_decrease": lambda b, po, pn: banded.cost_decrease(
+            b[0], b[1], _as_v1(po), _as_v1(pn)),
+        "rho_slots": lambda b, p: rho_slots(b[0], b[1], p),
+        "cost_decrease_pair": lambda b, rho_ref, pn: cost_decrease_pair(
+            b[0], b[1], rho_ref, pn),
+    }
     return {
+        "raw": raw,
         "prepare": lambda p: prepare(plan, problem, options, p, evaluate,
                                      statics),
         "solve_step": lambda aux, radius: solve_step(plan, options, aux,

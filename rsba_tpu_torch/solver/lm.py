@@ -1,23 +1,26 @@
-"""Levenberg–Marquardt trust-region driver (host loop).
+"""Levenberg–Marquardt trust-region loop.
 
 Counterpart of ``rsba_tpu/solver/lm.py``: Ceres ``TrustRegionMinimizer``
 + ``LevenbergMarquardtStrategy`` semantics — damping λ = 1/μ, step
 acceptance by relative decrease ρ, Ceres's radius update rules and the
 same convergence tests (gradient / function / parameter tolerance).
 
-The loop runs on the host and calls the phase functions in turn
-(prepare, solve_step, apply_step, cost_decrease), reading back only
-scalars.  The on-device loop is not ported yet (ROADMAP.md, Queue 1).
+``solve`` runs the on-device loop (``lm_device.py``) when the engine
+exposes raw phase closures and ``device_loop`` is not "off", else the
+host loop below, which calls the phase functions in turn (prepare,
+solve_step, apply_step, cost_decrease) and reads scalars back.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..problem.types import POSE_DOF, Params, Problem
+from ..problem.types import Params, Problem
+from . import assembly, residuals
 from .options import SolverOptions
 from .summary import IterationSummary, Summary
 
@@ -37,80 +40,162 @@ def inlier_threshold(problem: Problem) -> float:
 def make_solver_fns(problem: Problem, options: SolverOptions) -> dict:
     """Phase functions for a problem.
 
-    ``linear_solver`` "auto" and "banded_schur" build the window plan and
-    the fused banded engine (``banded_fused``); ``fns["engine"]`` records
-    the resolved (linear_solver, evaluator) pair.  The flat engines and
-    dogleg are not ported yet and raise NotImplementedError.
+    ``linear_solver="auto"`` picks the banded window solver
+    (``banded_fused``) when the problem's track structure admits it and
+    falls back to ``iterative_schur`` on the flat layout otherwise;
+    "banded_schur" requires the window layout and raises if it does not
+    apply.  ``fns["engine"]`` records the resolved (linear_solver,
+    evaluator) pair, which the Summary carries.
     """
     if options.trust_region_strategy == "dogleg":
-        raise NotImplementedError(
-            "trust_region_strategy='dogleg' is not ported yet "
-            "(ROADMAP.md, Queue 1: other solver features)")
-    if options.linear_solver not in ("auto", "banded_schur"):
-        raise NotImplementedError(
-            f"linear_solver={options.linear_solver!r} is not ported yet "
-            "(ROADMAP.md, Queue 1: flat engines)")
-    from .window import build_window_plan
-    plan = build_window_plan(problem)
-    if plan is None:
+        # Dogleg needs an exact step solver; the factory validates
+        # linear_solver and wraps the base engine.
+        from .dogleg import make_dogleg_solver
+        prepare, solve_step = make_dogleg_solver(problem, options)
+        return _flat_fns(problem, options, prepare, solve_step,
+                         engine=(options.linear_solver, "torch-flat-dogleg"))
+    if options.linear_solver in ("auto", "banded_schur"):
+        from .window import build_window_plan
+        plan = build_window_plan(problem)
+        if plan is not None:
+            from .banded_fused import make_fused_solver_fns
+            return make_fused_solver_fns(problem, plan, options)
         if options.linear_solver == "banded_schur":
             raise ValueError(
                 "banded_schur requires window/track structure (bounded "
                 "pose spans, pose_b ∈ {pose_a, pose_a+1}, single fixed "
-                "intrinsics block)")
-        raise NotImplementedError(
-            "the problem does not fit the window layout, and the flat "
-            "iterative_schur fallback is not ported yet (ROADMAP.md, "
-            "Queue 1: flat engines)")
-    from .banded_fused import make_fused_solver_fns
-    return make_fused_solver_fns(problem, plan, options)
+                "intrinsics block); use linear_solver='auto' to fall back")
+        options = dataclasses.replace(options,
+                                      linear_solver="iterative_schur")
+    if options.linear_solver == "dense":
+        from .dense import make_dense_solver
+        prepare, solve_step = make_dense_solver(problem, options)
+    elif options.linear_solver == "dense_schur":
+        from .schur import make_dense_schur_solver
+        prepare, solve_step = make_dense_schur_solver(problem, options)
+    elif options.linear_solver == "iterative_schur":
+        from .pcg import make_iterative_schur_solver
+        prepare, solve_step = make_iterative_schur_solver(problem, options)
+    else:
+        raise ValueError(options.linear_solver)
+    return _flat_fns(problem, options, prepare, solve_step,
+                     engine=(options.linear_solver, "torch-flat"))
+
+
+def _flat_fns(problem: Problem, options: SolverOptions, prepare, solve_step,
+              engine) -> dict:
+    """Shared phase-fn dict for the flat-layout engines (dense /
+    dense_schur / iterative_schur / dogleg): retraction, cost, stats."""
+    shapes = assembly.static_shapes(problem)
+    thresh = inlier_threshold(problem)
+
+    def apply_step(params: Params, dx: torch.Tensor):
+        d_pose, d_intr, d_pt = assembly.unflatten_tangent(dx, shapes)
+        new_params = residuals.apply_tangent(params, problem, d_pose, d_intr,
+                                             d_pt)
+        x_norm = torch.sqrt(
+            torch.sum(params.c ** 2) + torch.sum(params.points ** 2)
+            + torch.sum(params.q ** 2) + torch.sum(params.intr ** 2))
+        return new_params, torch.linalg.vector_norm(dx), x_norm
+
+    fns = {
+        "prepare": prepare,
+        "solve_step": solve_step,
+        "apply_step": apply_step,
+        "cost": lambda p: residuals.cost_only(p, problem),
+        "cost_decrease": lambda a, b: residuals.cost_decrease(a, b, problem),
+        "error_stats": lambda p: residuals.error_stats(p, problem, thresh),
+        "engine": engine,
+    }
+    # Raw phase closures: the on-device loop (lm_device.py) serves the
+    # flat engines too.  Dogleg keeps the host loop: its radius rules
+    # (dogleg.update_radius_dogleg) differ from the LM rules that loop
+    # implements.
+    if options.trust_region_strategy == "lm":
+        fns["raw"] = {
+            "bound": (),
+            "prepare": lambda b, p: prepare(p),
+            "solve_step": lambda b, aux, radius: solve_step(aux, radius),
+            "apply_step": lambda b, p, dx: apply_step(p, dx),
+            "cost_decrease": lambda b, a, c: residuals.cost_decrease(
+                a, c, problem),
+            "rho_slots": lambda b, p: residuals.rho_obs(p, problem),
+            "cost_decrease_pair": lambda b, rho_ref, c:
+                residuals.cost_decrease_pair(rho_ref, c, problem),
+        }
+    return fns
+
+
+def _finite(tree) -> bool:
+    leaves = tree.values() if isinstance(tree, dict) else [tree]
+    return all(bool(torch.isfinite(v).all()) for v in leaves)
 
 
 def solve(problem: Problem, params: Params,
           options: SolverOptions = SolverOptions(),
           callback: Optional[Callable] = None,
-          fns: Optional[dict] = None) -> Tuple[Params, Summary]:
+          fns: Optional[dict] = None,
+          summary: Optional[Summary] = None) -> Tuple[Params, Summary]:
     """Run LM to convergence.  Returns (optimized params, Summary).
 
     ``callback(iteration, params, iteration_summary)`` runs after every
     accepted step.  ``fns`` overrides the phase functions (see
-    ``make_solver_fns``).
+    ``make_solver_fns``).  ``summary`` continues an existing Summary, so
+    that a record stream can span restarts.
+
+    With ``device_loop`` "auto" or "on" and an engine that exposes raw
+    phase closures, the on-device loop runs the solve: captured in CUDA
+    graphs on a CUDA problem, eagerly on a CPU problem.  Per-phase wall
+    times are not available there (``evaluation_time`` and
+    ``linear_solver_time`` stay 0) and the evaluator tag gets
+    "+device_loop".
+
     With ``matmul_precision="highest"`` TF32 is turned off for CUDA
-    matmuls and cuDNN (a process-wide PyTorch setting).
+    matmuls and cuDNN (a process-wide PyTorch setting), before anything
+    is captured.
     """
     t_start = time.perf_counter()
-    if options.device_loop == "on":
-        raise NotImplementedError(
-            "device_loop='on' is not ported yet (ROADMAP.md, Queue 1: "
-            "on-device loop)")
     if options.matmul_precision == "highest":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     if fns is None:
         fns = make_solver_fns(problem, options)
     engine = fns.get("engine", (options.linear_solver, ""))
-    summary = Summary()
+    if summary is None:
+        summary = Summary()
     summary.linear_solver, summary.evaluator = engine
     summary.num_residuals = int(2 * torch.sum(problem.obs.mask))
-    summary.num_parameters_tangent = (
-        POSE_DOF * params.n_poses
-        + problem.intr_tangent_dim * params.intr.shape[0]
-        + 3 * params.n_points)
+    summary.num_parameters_tangent = assembly.tangent_shapes(
+        problem, params).total_dim
 
-    to_external = fns["to_external"]
-    params = fns["to_internal"](params)
+    # The window solver keeps points in a padded internal layout; convert
+    # at the solve boundary (and for user-visible callbacks).
+    to_external = fns.get("to_external")
+    if to_external is not None:
+        params = fns["to_internal"](params)
     sq0, n_valid, sq0_in, n_in = fns["error_stats"](params)
     summary.initial_rmse = _rmse(sq0, n_valid)
     summary.initial_rmse_inlier = _rmse(sq0_in, n_in)
     summary.preprocessing_time = time.perf_counter() - t_start
 
+    if options.device_loop == "on" and "raw" not in fns:
+        raise ValueError(
+            "device_loop='on' requires an engine exposing raw phase "
+            f"functions; this engine ({engine[0]}/{engine[1]}) does not")
+    if options.device_loop != "off" and "raw" in fns:
+        from . import lm_device
+        summary.evaluator = engine[1] + "+device_loop"
+        params = lm_device.run_blocks(fns, params, options, summary,
+                                      callback, to_external)
+        return _finish(fns, params, summary, to_external, t_start)
+
     radius = options.initial_radius
     decrease_factor = 2.0
     invalid_steps = 0
     terminated = False
-
-    def finite(x) -> bool:
-        return all(bool(torch.isfinite(v).all()) for v in x.values())
+    dogleg_rule = options.trust_region_strategy == "dogleg"
+    if dogleg_rule:
+        from .dogleg import update_radius_dogleg
 
     for _ in range(options.max_iterations):
         it_t0 = time.perf_counter()
@@ -140,7 +225,7 @@ def solve(problem: Problem, params: Params,
             t0 = time.perf_counter()
             dx, predicted, lin_iters = fns["solve_step"](aux, radius)
             pred = float(predicted)
-            dx_finite = finite(dx)
+            dx_finite = _finite(dx)
             summary.linear_solver_time += time.perf_counter() - t0
             cand, snorm, x_norm = fns["apply_step"](params, dx)
             step_norm = float(snorm)
@@ -161,14 +246,22 @@ def solve(problem: Problem, params: Params,
             rho = decrease / pred
             if math.isfinite(new_cost) and rho > options.min_relative_decrease:
                 accepted = True
-                # Ceres radius growth: μ ← μ / max(1/3, 1 − (2ρ−1)³)
-                radius = min(radius / max(1.0 / 3.0,
-                                          1.0 - (2.0 * rho - 1.0) ** 3),
-                             options.max_radius)
+                if dogleg_rule:
+                    radius = update_radius_dogleg(radius, rho, step_norm,
+                                                  True, options)
+                else:
+                    # Ceres radius growth: μ ← μ / max(1/3, 1 − (2ρ−1)³)
+                    radius = min(radius / max(1.0 / 3.0,
+                                              1.0 - (2.0 * rho - 1.0) ** 3),
+                                 options.max_radius)
                 decrease_factor = 2.0
             else:
-                radius /= decrease_factor
-                decrease_factor *= 2.0
+                if dogleg_rule:
+                    radius = update_radius_dogleg(radius, rho, step_norm,
+                                                  False, options)
+                else:
+                    radius /= decrease_factor
+                    decrease_factor *= 2.0
                 # Stagnation: predicted and actual change both below
                 # function tolerance — the optimum is resolved to working
                 # precision.
@@ -202,7 +295,9 @@ def solve(problem: Problem, params: Params,
             if accepted:
                 params = cand
                 if callback is not None:
-                    callback(summary.num_iterations, to_external(params), it)
+                    callback(summary.num_iterations,
+                             to_external(params) if to_external is not None
+                             else params, it)
                 # Convergence tests (Ceres ordering: after accepted step).
                 cost_change = cost - new_cost
                 if abs(cost_change) <= options.function_tolerance * cost:
@@ -230,10 +325,17 @@ def solve(problem: Problem, params: Params,
         summary.termination = "NO_CONVERGENCE"
         summary.message = f"max iterations ({options.max_iterations}) reached"
 
+    return _finish(fns, params, summary, to_external, t_start)
+
+
+def _finish(fns, params, summary, to_external, t_start):
+    """Final cost and error statistics; parameters back in the caller's
+    layout."""
     summary.final_cost = float(fns["cost"](params))
     sqf, n_valid, sqf_in, n_in = fns["error_stats"](params)
     summary.final_rmse = _rmse(sqf, n_valid)
     summary.final_rmse_inlier = _rmse(sqf_in, n_in)
-    params = to_external(params)
+    if to_external is not None:
+        params = to_external(params)
     summary.total_time = time.perf_counter() - t_start
     return params, summary

@@ -1,6 +1,11 @@
 """Solver configuration — counterpart of ``rsba_tpu/solver/options.py``
 (parity with ``ceres::Solver::Options``), trimmed to the knobs the port
-has."""
+has.
+
+``Summary.evaluator`` records what ran: "cuda" (the fused kernel) or
+"torch" (its plain version) for the banded solver, "torch-flat" for the
+flat engines and "torch-flat-dogleg" for dogleg, each with
+"+device_loop" appended when the on-device loop drove the solve."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,7 +25,8 @@ class SolverOptions:
     1/max(1/3, 1−(2ρ−1)³) on accepted steps and halved-with-backoff on
     rejections.
     """
-    # Outer loop.  "dogleg" is not ported yet (ROADMAP.md, Queue 1).
+    # Outer loop: "lm", or "dogleg" (TRADITIONAL_DOGLEG; exact solvers
+    # "dense" / "dense_schur" only, host loop only).
     trust_region_strategy: str = "lm"
     max_iterations: int = 50
     initial_radius: float = 1e4
@@ -33,11 +39,17 @@ class SolverOptions:
     max_invalid_steps: int = 5         # consecutive non-finite-step budget
 
     # Linear solver.  "auto" picks the banded window solver when the
-    # problem's track structure admits it.  Only "auto"/"banded_schur"
-    # are ported; the flat engines raise NotImplementedError.
+    # problem's track structure admits it and the flat "iterative_schur"
+    # otherwise; "banded_schur" requires the window layout.  "dense"
+    # (normal equations + Cholesky; point-block elimination above a size
+    # guard) and "dense_schur" are the exact flat engines.
     linear_solver: str = "auto"
-    # PCG preconditioner on the band: "schur_jacobi" (alias "jacobi").
-    # "cluster_jacobi" is not ported yet.
+    # PCG preconditioner of iterative_schur and the banded solver:
+    # "schur_jacobi" (per-pose 6×6 blocks of S; "jacobi" aliases it on
+    # the band and is the plain diagonal on iterative_schur), or
+    # "cluster_jacobi": on the band contiguous 16-pose segments factored
+    # dense, on iterative_schur co-visibility clusters of cameras with
+    # per-cluster dense blocks of S (solver/cluster.py).
     preconditioner: str = "schur_jacobi"
     min_lm_diagonal: float = 1e-6
     max_lm_diagonal: float = 1e32
@@ -45,6 +57,8 @@ class SolverOptions:
     # PCG: max iterations and the forcing-sequence eta.
     max_cg_iterations: int = 100
     cg_eta: float = 1e-2
+    # Iterative refinement sweeps after the dense Cholesky solves.
+    refinement_steps: int = 1
     # Evaluator of the banded solver's prepare phase: "cuda" = the fused
     # evaluate+assemble CUDA kernel (raises on CPU tensors), "torch" = its
     # plain PyTorch version, "auto" = the kernel on CUDA tensors and the
@@ -55,9 +69,18 @@ class SolverOptions:
     # 40 vs 6 LM iterations on the reference.
     matmul_precision: str = "highest"
 
-    # On-device LM loop: not ported yet ("auto" resolves to the host
-    # loop, "on" raises NotImplementedError).
+    # On-device LM loop (solver/lm_device.py): one step attempt is one
+    # function on tensors with every decision taken on the device.  On a
+    # CUDA problem it is captured in a CUDA graph and replayed, and the
+    # host reads one small tensor back per attempt; on a CPU problem the
+    # same function runs eagerly.  "auto" = use it when the engine exposes
+    # raw phase functions (every engine but dogleg does); "on" requires
+    # it (raises otherwise); "off" = the host-driven loop.
     device_loop: str = "auto"
+    # With a per-iteration callback installed, the device loop returns to
+    # the caller every 4·device_block_iters attempts so that the callback
+    # still fires.  0 = never (the callback then fires at the end).
+    device_block_iters: int = 8
 
     # Reporting
     verbose: bool = False

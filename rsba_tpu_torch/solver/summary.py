@@ -53,8 +53,11 @@ class Summary:
     evaluation_time: float = 0.0
     linear_solver_time: float = 0.0
     total_time: float = 0.0
+    # Tensors the on-device loop read back to the host (one per attempt
+    # and one per block); 0 under the host loop, which reads scalars.
+    host_reads: int = 0
     # Resolved engine pair (what actually ran, not the requested string):
-    # e.g. ("banded_schur", "cuda") or ("banded_schur", "torch").
+    # e.g. ("banded_schur", "cuda+device_loop") or ("dense", "torch-flat").
     linear_solver: str = ""
     evaluator: str = ""
 

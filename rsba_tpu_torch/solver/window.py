@@ -11,8 +11,9 @@ slot)`` grid:
   heavily populated bases are split across rows.
 
 Per-slot pose data is a gather over the row's W-window, and camera-side
-reductions sum per-row windows and fold them into per-pose rows with one
-``index_add_`` over ``NR·W`` indices.
+reductions sum per-row windows and fold them into per-pose rows through a
+static table of each pose's contributors: a gather and a sum in a fixed
+order, so two runs on the same data give the same bits.
 
 Applicability: every point's observations touch a pose window of bounded
 span, pose_b ∈ {pose_a, pose_a + 1}, and a single fixed intrinsics
@@ -54,6 +55,16 @@ class WindowPlan:
     offs_a: torch.Tensor      # (NR, G, L) int64 pose_a − row_base ∈ [0, W)
     rs_ab: torch.Tensor       # (NR, G, L) 1.0 where pose_b == pose_a + 1
     point_id: torch.Tensor    # (NR, G) int64 original point index (M: pad)
+    #: (P, K) int64 flat (row·W + w) window cells that fold into each pose,
+    #: in increasing order, padded with NR·W (a zero cell)
+    fold_idx: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.fold_idx is None:
+            table = _fold_table(self.row_base.detach().cpu().numpy(), self.W,
+                                self.n_poses)
+            self.fold_idx = torch.as_tensor(table,
+                                            device=self.row_base.device)
 
     @property
     def offs_b(self) -> torch.Tensor:
@@ -71,12 +82,13 @@ class WindowPlan:
 
     def fold(self, v: torch.Tensor) -> torch.Tensor:
         """Adjoint of pose_windows: (NR, W, ...) → (P, ...),
-        out[row_base[r] + w] += v[r, w]."""
+        out[row_base[r] + w] += v[r, w].  Each pose gathers its
+        contributing window cells and sums them in the table's order (no
+        atomics, no host read: the same bits every run, and it can be
+        captured in a CUDA graph)."""
         rest = tuple(v.shape[2:])
-        out = v.new_zeros((self.n_poses + self.W,) + rest)
-        out.index_add_(0, self._win_idx().reshape(-1),
-                       v.reshape((-1,) + rest))
-        return out[:self.n_poses]
+        cells = torch.cat([v.reshape((-1,) + rest), v.new_zeros((1,) + rest)])
+        return cells[self.fold_idx].sum(dim=1)
 
     def _select(self, win: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
         rows = torch.arange(self.NR, device=offs.device)[:, None, None]
@@ -107,6 +119,21 @@ class WindowPlan:
     def gather_point_scalar(self, v: torch.Tensor) -> torch.Tensor:
         """(M,) → (NR, G) via the point permutation (sentinel 0)."""
         return torch.cat([v, v.new_zeros((1,))])[self.point_id]
+
+
+def _fold_table(row_base: np.ndarray, W: int, n_poses: int) -> np.ndarray:
+    """(P, K) flat window cells (row·W + w) whose pose is p, in increasing
+    order, padded with the sentinel NR·W."""
+    NR = row_base.shape[0]
+    pose = (row_base[:, None] + np.arange(W)[None, :]).reshape(-1)
+    cell = np.nonzero(pose < n_poses)[0]
+    cell = cell[np.argsort(pose[cell], kind="stable")]
+    pose = pose[cell]
+    counts = np.bincount(pose, minlength=n_poses)
+    start = np.cumsum(counts) - counts
+    table = np.full((n_poses, max(int(counts.max()), 1)), NR * W, np.int64)
+    table[pose, np.arange(pose.size) - start[pose]] = cell
+    return table
 
 
 def _round_up(x: int, m: int) -> int:

@@ -2,7 +2,8 @@
 
 A tiny flagship problem (rolling-shutter SLERP + distortion + Huber, the
 config-4 feature set) is solved by ``rsba_tpu.solver.lm.solve`` (window
-engine, host loop) and by ``rsba_tpu_torch.solver.solve`` in float64:
+engine, host loop) and by ``rsba_tpu_torch.solver.solve`` (host loop) in
+float64:
 same termination, LM iterations within 1, final cost rtol 1e-6, inlier
 RMSE within 1e-4 px.
 """
@@ -35,7 +36,8 @@ def test_tiny_solve_matches_reference(flagship):
                       JOptions(evaluator="xla", device_loop="off", **KW))
     problem = ttypes.problem_from_numpy(flagship.problem, device="cpu")
     params0 = ttypes.params_from_numpy(flagship.params0, device="cpu")
-    params, st = solve(problem, params0, SolverOptions(**KW))
+    params, st = solve(problem, params0,
+                       SolverOptions(device_loop="off", **KW))
     assert (st.linear_solver, st.evaluator) == ("banded_schur", "torch")
     assert st.termination == sj.termination == "CONVERGENCE"
     assert abs(st.num_iterations - sj.num_iterations) <= 1
@@ -62,27 +64,53 @@ def test_readme_usage_converges():
     assert not torch.backends.cudnn.allow_tf32
 
 
-@pytest.mark.parametrize("opts,err", [
-    (dict(trust_region_strategy="dogleg"), NotImplementedError),
-    (dict(linear_solver="dense_schur"), NotImplementedError),
-    (dict(linear_solver="iterative_schur"), NotImplementedError),
-    (dict(preconditioner="cluster_jacobi"), NotImplementedError),
-    (dict(device_loop="on"), NotImplementedError),
+@pytest.mark.parametrize("opts,engine", [
+    (dict(linear_solver="dense", trust_region_strategy="dogleg"),
+     ("dense", "torch-flat-dogleg")),
+    (dict(linear_solver="dense_schur"),
+     ("dense_schur", "torch-flat+device_loop")),
+    (dict(linear_solver="iterative_schur"),
+     ("iterative_schur", "torch-flat+device_loop")),
+    (dict(preconditioner="cluster_jacobi"),
+     ("banded_schur", "torch+device_loop")),
+    (dict(device_loop="on"), ("banded_schur", "torch+device_loop")),
     (dict(evaluator="pallas"), ValueError),
 ], ids=["dogleg", "dense_schur", "iterative_schur", "cluster_jacobi",
         "device_loop_on", "bad_evaluator"])
-def test_unported_options_raise(flagship, opts, err):
+def test_unported_options_raise(flagship, opts, engine):
+    """Every solver option resolves to its engine and solves (each of
+    these raised NotImplementedError while its module was missing); an
+    evaluator the port does not have is still refused."""
     problem = ttypes.problem_from_numpy(flagship.problem, device="cpu")
     params0 = ttypes.params_from_numpy(flagship.params0, device="cpu")
-    with pytest.raises(err):
-        solve(problem, params0, SolverOptions(max_iterations=2, **opts))
+    if engine is ValueError:
+        with pytest.raises(ValueError):
+            solve(problem, params0, SolverOptions(max_iterations=2, **opts))
+        return
+    _, s = solve(problem, params0, SolverOptions(max_iterations=30, **opts))
+    assert (s.linear_solver, s.evaluator) == engine
+    assert s.termination == "CONVERGENCE", s.message
+    assert s.final_rmse_inlier < 1.7 * flagship.pixel_noise
+
+
+def test_bad_options_raise(flagship):
+    problem = ttypes.problem_from_numpy(flagship.problem, device="cpu")
+    params0 = ttypes.params_from_numpy(flagship.params0, device="cpu")
+    with pytest.raises(ValueError, match="exact step"):
+        solve(problem, params0, SolverOptions(trust_region_strategy="dogleg"))
+    with pytest.raises(ValueError, match="device_loop"):
+        solve(problem, params0, SolverOptions(
+            linear_solver="dense", trust_region_strategy="dogleg",
+            device_loop="on"))
 
 
 def test_flat_problem_raises_not_implemented():
-    """gs_bal's optimizable intrinsics need the flat engines."""
+    """gs_bal's optimizable intrinsics do not fit the window layout:
+    ``auto`` resolves to the flat iterative_schur engine, and
+    ``banded_schur`` refuses."""
     ba = tsyn.CONFIGS["gs_bal"](scale=0.04, device="cpu")
-    with pytest.raises(NotImplementedError, match="window layout"):
-        make_solver_fns(ba.problem, SolverOptions())
+    fns = make_solver_fns(ba.problem, SolverOptions())
+    assert fns["engine"] == ("iterative_schur", "torch-flat")
     with pytest.raises(ValueError, match="window/track structure"):
         make_solver_fns(ba.problem, SolverOptions(
             linear_solver="banded_schur"))
@@ -94,7 +122,12 @@ def test_import_leaves_jax_out():
         "import sys; sys.path.insert(0, sys.argv[1]); "
         "import rsba_tpu_torch, rsba_tpu_torch.solver, "
         "rsba_tpu_torch.solver.banded_fused, rsba_tpu_torch.kernels.fused, "
-        "rsba_tpu_torch.kernels.build, rsba_tpu_torch.problem.synthetic; "
+        "rsba_tpu_torch.kernels.build, rsba_tpu_torch.problem.synthetic, "
+        "rsba_tpu_torch.solver.lm_device, rsba_tpu_torch.solver.residuals, "
+        "rsba_tpu_torch.solver.assembly, rsba_tpu_torch.solver.flatplan, "
+        "rsba_tpu_torch.solver.dense, rsba_tpu_torch.solver.schur, "
+        "rsba_tpu_torch.solver.pcg, rsba_tpu_torch.solver.cluster, "
+        "rsba_tpu_torch.solver.dogleg, rsba_tpu_torch.tools.profile_loop; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'rsba_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)")
