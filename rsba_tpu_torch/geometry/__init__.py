@@ -1,6 +1,9 @@
-from . import camera, distortion, interpolate, losses, quaternion
-from .camera import CameraModel
+from . import (camera, distortion, epipolar, interpolate, losses, quaternion,
+               triangulate)
+from .camera import CameraModel, intrinsics_vector
 from .losses import Loss
 
-__all__ = ["camera", "distortion", "interpolate", "losses", "quaternion",
-           "CameraModel", "Loss"]
+__all__ = [
+    "camera", "distortion", "epipolar", "interpolate", "losses",
+    "quaternion", "triangulate", "CameraModel", "intrinsics_vector", "Loss",
+]

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import distortion as dist
@@ -40,6 +41,13 @@ class CameraModel:
                 f"rotation_interp must be one of "
                 f"{interpolate.ROTATION_INTERP_MODES}, got "
                 f"{self.rotation_interp!r}")
+
+
+def intrinsics_vector(fx, fy=None, cx=0.0, cy=0.0, k1=0.0, k2=0.0, p1=0.0,
+                      p2=0.0, k3=0.0, dtype=np.float64) -> np.ndarray:
+    """Convenience constructor for the 9-vector intrinsics layout."""
+    fy = fx if fy is None else fy
+    return np.array([fx, fy, cx, cy, k1, k2, p1, p2, k3], dtype=dtype)
 
 
 def project_camera_point(x_cam: torch.Tensor, intr: torch.Tensor,

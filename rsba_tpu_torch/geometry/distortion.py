@@ -1,6 +1,6 @@
 """Radial-tangential (Brown–Conrady) lens distortion.
 
-Counterpart of ``rsba_tpu/geometry/distortion.py`` (``distort`` only).
+Counterpart of ``rsba_tpu/geometry/distortion.py``.
 Coefficients are packed ``[k1, k2, p1, p2, k3]`` (OpenCV order):
 
     r² = x² + y²
@@ -26,3 +26,20 @@ def distort(xy: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
     yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
     return torch.cat([xd, yd], dim=-1)
+
+
+def undistort(xy_d: torch.Tensor, coeffs: torch.Tensor,
+              iters: int = 8) -> torch.Tensor:
+    """Invert :func:`distort` by ``iters`` fixed-point steps (OpenCV
+    style).  For initialisation paths (rays from distorted detections),
+    never inside the optimiser's loop."""
+    xd, yd = xy_d[..., 0:1], xy_d[..., 1:2]
+    k1, k2, p1, p2, k3 = (coeffs[..., i:i + 1] for i in range(5))
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x, y = (xd - dx) / radial, (yd - dy) / radial
+    return torch.cat([x, y], dim=-1)

@@ -61,6 +61,57 @@ def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + 2.0 * (w * uv + _cross(u, uv))
 
 
+def rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by the inverse rotation: R(q)ᵀ·v."""
+    return rotate(conjugate(q), v)
+
+
+def to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion → 3×3 rotation matrix (R(q)·v == rotate(q, v))."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def from_matrix(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix → unit quaternion (wxyz), batched and branch-free.
+
+    Shepperd's method: all four candidate quaternions (scaled by 4w², 4x²,
+    4y², 4z²) are built and the one with the largest pivot is selected, so
+    180° rotations, where the trace formula alone loses precision, are
+    safe.  Inverse of :func:`to_matrix` up to the double cover.
+    """
+    m = R
+    m00, m11, m22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    t0 = 1.0 + m00 + m11 + m22    # 4w²
+    t1 = 1.0 + m00 - m11 - m22    # 4x²
+    t2 = 1.0 - m00 + m11 - m22    # 4y²
+    t3 = 1.0 - m00 - m11 + m22    # 4z²
+    a = m[..., 2, 1] - m[..., 1, 2]
+    b = m[..., 0, 2] - m[..., 2, 0]
+    c = m[..., 1, 0] - m[..., 0, 1]
+    d = m[..., 0, 1] + m[..., 1, 0]
+    e = m[..., 0, 2] + m[..., 2, 0]
+    f = m[..., 1, 2] + m[..., 2, 1]
+    cands = torch.stack([
+        torch.stack([t0, a, b, c], dim=-1),
+        torch.stack([a, t1, d, e], dim=-1),
+        torch.stack([b, d, t2, f], dim=-1),
+        torch.stack([c, e, f, t3], dim=-1)], dim=-2)         # (…, 4, 4)
+    # argmax returns the first maximum, as the reference's does.
+    best = torch.argmax(torch.stack([t0, t1, t2, t3], dim=-1), dim=-1)
+    q = torch.gather(cands, -2,
+                     best[..., None, None].expand(best.shape + (1, 4)))
+    return normalize(q[..., 0, :])
+
+
 def from_axis_angle(aa: torch.Tensor) -> torch.Tensor:
     """Angle-axis (…, 3) → unit quaternion (…, 4). Safe at ‖aa‖ → 0."""
     theta_sq = torch.sum(aa * aa, dim=-1, keepdim=True)
@@ -86,9 +137,20 @@ def to_axis_angle(q: torch.Tensor) -> torch.Tensor:
     return k * u
 
 
+def exp_tangent(delta: torch.Tensor) -> torch.Tensor:
+    """SO(3) exponential of a tangent vector → quaternion (the same map
+    as :func:`from_axis_angle`, named for its manifold role)."""
+    return from_axis_angle(delta)
+
+
 def boxplus(q: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """q ⊞ δ = normalize(q ⊗ exp(δ)) (right-multiplied local perturbation)."""
-    return normalize(multiply(q, from_axis_angle(delta)))
+    return normalize(multiply(q, exp_tangent(delta)))
+
+
+def log(q: torch.Tensor) -> torch.Tensor:
+    """SO(3) logarithm: quaternion → tangent (…, 3) (== to_axis_angle)."""
+    return to_axis_angle(q)
 
 
 def relative(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:

@@ -176,11 +176,19 @@ def validate_problem(problem: Problem) -> None:
 _OBS_INT = ("pose_a", "pose_b", "intr_idx", "point")
 
 
+def _tensor(a, dtype, device) -> torch.Tensor:
+    """An array field (numpy, a JAX array, or a tensor on any device) as a
+    tensor of ``dtype`` on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=device, dtype=dtype)
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
 def params_from_numpy(src, *, device=None, dtype=torch.float64) -> Params:
-    """Params from any object with q/c/intr/points array fields."""
+    """Params from any object with q/c/intr/points array fields (this
+    package's own Params included: a change of dtype or device)."""
     device = default_device(device)
-    return Params(*(torch.as_tensor(np.array(getattr(src, f)),
-                                    dtype=dtype, device=device)
+    return Params(*(_tensor(getattr(src, f), dtype, device)
                     for f in ("q", "c", "intr", "points")))
 
 
@@ -190,7 +198,7 @@ def problem_from_numpy(src, *, device=None, dtype=torch.float64) -> Problem:
     device = default_device(device)
 
     def arr(a, dt):
-        return torch.as_tensor(np.array(a), dtype=dt, device=device)
+        return _tensor(a, dt, device)
 
     o = src.obs
     obs = Observations(**{

@@ -158,6 +158,11 @@ def solve(problem: Problem, params: Params,
     if options.matmul_precision == "highest":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if options.check_gradients:
+        from .gradient_check import check_gradients
+        tol = options.gradient_check_relative_precision or (
+            1e-5 if params.dtype == torch.float64 else 2e-3)
+        check_gradients(problem, params, relative_precision=tol)
     if fns is None:
         fns = make_solver_fns(problem, options)
     engine = fns.get("engine", (options.linear_solver, ""))

@@ -167,6 +167,12 @@ class _Runner:
     step, so nothing but that measurement builds it.
     """
 
+    #: graph captures made by all runners of the process (a pair of graphs
+    #: counts once) and the seconds they took, warm-up included; read by
+    #: the tools that report what a workload of many solves costs
+    captures = 0
+    capture_seconds = 0.0
+
     def __init__(self, raw: dict, options: SolverOptions,
                  block_attempts: int, prepare_in_attempt: bool = False):
         self.raw = raw
@@ -352,6 +358,7 @@ class _Runner:
         """Warm both functions up on a side stream, put the state back,
         and capture them.  Whatever fails here raises."""
         from ..kernels import fused
+        t_start = time.perf_counter()
         counter = fused.fused_evaluate_assemble_cuda
         state = _leaves(self.state)
         saved = [t.clone() for t in state]
@@ -385,6 +392,8 @@ class _Runner:
         counter.launches = before
         self.graphs = (g_attempt, g_refresh)
         self.kernel_nodes = (in_attempt, in_refresh)
+        _Runner.captures += 1
+        _Runner.capture_seconds += time.perf_counter() - t_start
 
     # --- one attempt, from the host ---------------------------------------
 

@@ -82,6 +82,15 @@ class SolverOptions:
     # still fires.  0 = never (the callback then fires at the end).
     device_block_iters: int = 8
 
+    # Runtime gradient verification (Ceres Solver::Options::check_gradients
+    # / GradientChecker): before solving, compare the forward-mode block
+    # Jacobians against central finite differences on a sample of
+    # observations and raise on a mismatch.  Precision 0 = the dtype's
+    # default in lm.solve (1e-5 in float64, 2e-3 in float32, where finite
+    # differences floor at ~1e-3).
+    check_gradients: bool = False
+    gradient_check_relative_precision: float = 0.0
+
     # Reporting
     verbose: bool = False
 

@@ -30,6 +30,25 @@ class Evaluation(NamedTuple):
         return self.r.shape[0]
 
 
+def gathered_residual_fn(problem: Problem):
+    """Per-observation tangent-space residual closure
+
+        f(d_pa, d_pb, d_intr, d_pt, qa, ca, qb, cb, intr, X, uv, t) → (2,)
+
+    with the d_* tangent perturbations (pose ⊞ δ, intrinsics through the
+    static basis): the function ``evaluate`` differentiates at zero."""
+    model, basis = problem.model, problem.intr_basis
+
+    def f(d_pa, d_pb, d_intr, d_pt, qa, ca, qb, cb, intr, X, uv, t):
+        qa2 = quat.boxplus(qa, d_pa[:3])
+        qb2 = quat.boxplus(qb, d_pb[:3])
+        return camera.project(qa2, ca + d_pa[3:], qb2, cb + d_pb[3:],
+                              intr + basis @ d_intr, X + d_pt, t,
+                              model) - uv
+
+    return f
+
+
 def _gather(params: Params, obs: Observations):
     pa, pb = obs.pose_a.long(), obs.pose_b.long()
     return (params.q[pa], params.c[pa], params.q[pb], params.c[pb],
@@ -91,15 +110,12 @@ def evaluate(params: Params, problem: Problem) -> Evaluation:
     parameter blocks.
     """
     obs = problem.obs
-    model, basis = problem.model, problem.intr_basis
     ni = problem.intr_tangent_dim
     dtype, dev = params.dtype, params.device
+    res = gathered_residual_fn(problem)
 
-    def f(d_pa, d_pb, d_intr, d_pt, qa, ca, qb, cb, intr, X, uv, t):
-        qa2 = quat.boxplus(qa, d_pa[:3])
-        qb2 = quat.boxplus(qb, d_pb[:3])
-        r = camera.project(qa2, ca + d_pa[3:], qb2, cb + d_pb[3:],
-                           intr + basis @ d_intr, X + d_pt, t, model) - uv
+    def f(*args):
+        r = res(*args)
         return r, r
 
     zeros = tuple(torch.zeros(n, dtype=dtype, device=dev)

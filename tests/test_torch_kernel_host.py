@@ -67,3 +67,22 @@ def test_host_build_matches_plain_version(host_lib, name, same_pose):
         assert torch.isfinite(out[k]).all(), k
         torch.testing.assert_close(out[k], want, rtol=1e-9, atol=1e-9,
                                    msg=lambda m, k=k: f"{k}: {m}")
+
+
+def test_host_build_on_a_session_shaped_problem(host_lib):
+    """As a bucketed session's windowed BA poses it: constant poses, and
+    dummy poses and points that no observation touches."""
+    ba = chip_smoke.session_shaped(synthetic.make_ba_problem(
+        dtype=torch.float64, device="cpu", **chip_smoke.fixtures()["rs_nlerp"]))
+    plan, _, _, inp = chip_smoke.kernel_inputs(ba)
+    assert plan.n_poses == 12 and plan.n_points == 104
+    assert float(inp[0][..., 7].min()) == 0.0        # constant poses
+    assert float(inp[2].min()) == 0.0                # constant points
+    model, loss = ba.problem.model, ba.problem.loss
+    ref = fused.fused_evaluate_assemble_reference(*inp, model=model,
+                                                  loss=loss)
+    out = fused._run(host_lib, 0, *inp, model, loss)
+    for k, want in ref.items():
+        assert torch.isfinite(out[k]).all(), k
+        torch.testing.assert_close(out[k], want, rtol=1e-9, atol=1e-9,
+                                   msg=lambda m, k=k: f"{k}: {m}")

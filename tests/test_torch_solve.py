@@ -127,9 +127,17 @@ def test_import_leaves_jax_out():
         "rsba_tpu_torch.solver.assembly, rsba_tpu_torch.solver.flatplan, "
         "rsba_tpu_torch.solver.dense, rsba_tpu_torch.solver.schur, "
         "rsba_tpu_torch.solver.pcg, rsba_tpu_torch.solver.cluster, "
-        "rsba_tpu_torch.solver.dogleg, rsba_tpu_torch.tools.profile_loop; "
+        "rsba_tpu_torch.solver.dogleg, rsba_tpu_torch.tools.profile_loop, "
+        "rsba_tpu_torch.solver.covariance, "
+        "rsba_tpu_torch.solver.gradient_check, rsba_tpu_torch.solver.p3p, "
+        "rsba_tpu_torch.solver.pnp, rsba_tpu_torch.solver.ransac, "
+        "rsba_tpu_torch.geometry.epipolar, "
+        "rsba_tpu_torch.geometry.triangulate, rsba_tpu_torch.io.bal, "
+        "rsba_tpu_torch.utils.checkpoint, rsba_tpu_torch.utils.roofline, "
+        "rsba_tpu_torch.pipeline.session, rsba_tpu_torch.cli.run, "
+        "rsba_tpu_torch.tools.pipeline_gpu; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'rsba_tpu')); "
+        "('jax', 'jaxlib', 'flax', 'orbax', 'rsba_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-I", "-c", code, REPO],
                          capture_output=True, text=True, timeout=120)
