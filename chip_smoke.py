@@ -56,7 +56,19 @@ Phases, each raising on failure (exit code 1):
    hypotheses, float32, held to the true inlier set within 2% and to the
    pose envelope of ``tests/test_registration.py``;
 9. the CLI in-process: ``--config rs_video_linear`` to its anchor, and a
-   checkpointed run resumed from its directory, whose history continues.
+   checkpointed run resumed from its directory, whose history continues;
+10. the distributed solvers (``rsba_tpu_torch.dist``), functional only on
+   one card: ``entry()``'s LM step through the kernel;
+   ``dryrun_multichip(1)`` on NCCL and ``dryrun_multichip(2,
+   backend="gloo")`` with both ranks on the card; config 4 in float32
+   through the banded sharded engine (``cuda-sharded``) on a world of one
+   rank on NCCL, which must take phase 3's host-loop accept sequence, and
+   on two gloo ranks sharing the card, which must reach the anchor with
+   equal records on both ranks and whose kernel outputs must equal the
+   one-process launch's rows in every bit; config 1 on two gloo ranks
+   through the flat ``iterative_schur`` and ``dense_schur``; the CLI's
+   ``--shard`` on config 3.  Each kernel launch count there is read from
+   0 around its solve, one launch per prepare on every rank.
 
 The last two lines are a JSON record of the kernels and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -676,6 +688,156 @@ def cli_phase(card):
         f"px  OK")
 
 
+def check_rank_records(name, recs, anchor, want_engine):
+    """Every rank converged to within RMSE_TOL of the anchor through the
+    engine, with one kernel launch per prepare on the banded engine, and
+    all ranks took the same accept sequence to the same final cost."""
+    for r in recs:
+        log(f"{name} rank {r['rank']}/{r['ranks']} ({r['backend']}, "
+            f"{r['device']}): {r['engine']}, {r['termination']} in "
+            f"{r['iterations']} attempts {r['seq']}, CG {r['cg']}, inlier "
+            f"RMSE {r['rmse_inlier']:.5f} px (anchor {anchor}), solve "
+            f"{r['wall_s']:.3f} s, prepares {r['prepares']}, kernel launches "
+            f"{r['kernel_launches']}, all-reduces {r['all_reduces']} "
+            f"({r['all_reduce_bytes_per_attempt']:.0f} B an attempt), "
+            f"max_memory_allocated {r['max_memory_gib']:.3f} GiB")
+        problems = []
+        if r["engine"] != want_engine:
+            problems.append(f"engine {r['engine']}, want {want_engine}")
+        if r["termination"] != "CONVERGENCE" or not r["finite"]:
+            problems.append(f"{r['termination']} ({r['message']})")
+        if abs(r["rmse_inlier"] - anchor) > RMSE_TOL:
+            problems.append(f"inlier RMSE {r['rmse_inlier']}")
+        banded = want_engine.startswith("banded_schur/cuda")
+        if banded and not (r["kernel_launches"] > 0
+                           and r["kernel_launches"] == r["prepares"]):
+            problems.append(f"{r['kernel_launches']} kernel launches for "
+                            f"{r['prepares']} prepares")
+        if problems:
+            raise AssertionError(f"{name} rank {r['rank']}: "
+                                 + "; ".join(problems))
+    if len({(r["seq"], r["final_cost"]) for r in recs}) != 1:
+        raise AssertionError(f"{name}: the ranks' records differ: "
+                             f"{[(r['seq'], r['final_cost']) for r in recs]}")
+
+
+def dist_phase(card, host_seq):
+    """Phase 10: the distributed solvers on the one card (functional
+    only: ranks that share a card measure no scaling).  ``host_seq`` is
+    phase 3's host-loop accept sequence of config 4.  Returns the kernel
+    launches of the sharded config-4 solves: the one-rank world's and
+    each rank's of the two-rank world."""
+    import torch
+    from rsba_tpu_torch import entry
+    from rsba_tpu_torch.cli import run
+    from rsba_tpu_torch.dist import launch
+    from rsba_tpu_torch.kernels import fused
+    from rsba_tpu_torch.problem import synthetic
+    from rsba_tpu_torch.tools import dist_gpu
+
+    log(f"phase 10, distributed, functional only: one card [{card}]")
+    # entry(): one LM iteration on the tiny flagship through the kernel
+    fn, (params0, radius) = entry.entry()
+    fused.fused_evaluate_assemble_cuda.launches = 0
+    params, (cost, decrease, predicted, cg) = fn(params0, radius)
+    torch.cuda.synchronize()
+    n = fused.fused_evaluate_assemble_cuda.launches
+    if not (n == 1 and float(decrease) > 0 and float(predicted) > 0
+            and torch.isfinite(params.points).all()):
+        raise AssertionError(f"entry(): {n} launches, decrease "
+                             f"{float(decrease)}, predicted "
+                             f"{float(predicted)}")
+    log(f"entry() [{card}]: cost {float(cost):.6e}, decrease "
+        f"{float(decrease):.6e}, predicted {float(predicted):.6e}, CG "
+        f"{int(cg)}, kernel launches {n}  OK")
+
+    for n_ranks, backend in ((1, None), (2, "gloo")):
+        t0 = time.perf_counter()
+        recs = entry.dryrun_multichip(n_ranks, backend=backend)
+        log(f"dryrun_multichip({n_ranks}, backend={backend}) [{card}]: "
+            f"{[(r['rank'], r['device'], r['backend']) for r in recs]}, "
+            f"engines {recs[0]['engine_banded']} and "
+            f"{recs[0]['engine_flat']}, cost {recs[0]['cost']:.6e} -> "
+            f"{recs[0]['banded_new_cost']:.6e} (banded), "
+            f"{recs[0]['flat_new_cost']:.6e} (flat), "
+            f"{time.perf_counter() - t0:.1f} s  OK")
+        if recs[0]["engine_banded"] != ("banded_schur", "cuda-sharded"):
+            raise AssertionError(f"dryrun engine {recs[0]['engine_banded']}")
+        if len({(r["banded_new_cost"], r["flat_new_cost"])
+                for r in recs}) != 1:
+            raise AssertionError(f"dryrun: ranks differ: {recs}")
+
+    # Config 4 through the banded sharded engine: one rank on NCCL, here
+    job = {"config": "rs_slerp_robust", "dtype": "f32", "solver": "auto",
+           "max_iterations": 60}
+    with launch.single_rank() as mesh:
+        one = dist_gpu.solve_rank(mesh, job)
+    check_rank_records("rs_slerp_robust, 1 rank on nccl", [one],
+                       RMSE_ANCHOR["rs_slerp_robust"],
+                       "banded_schur/cuda-sharded")
+    if one["seq"] != host_seq:
+        raise AssertionError(f"config 4 on one NCCL rank took {one['seq']}, "
+                             f"the host loop {host_seq}")
+    log(f"rs_slerp_robust, 1 rank on nccl: the host loop's accept sequence "
+        f"{host_seq}  OK")
+    torch.cuda.empty_cache()
+
+    # ... and on two gloo ranks sharing the card, each rank's kernel
+    # outputs held to the one-process launch's rows
+    recs = launch.spawn(dist_gpu.solve_rank, 2, "gloo", "cuda",
+                        dict(job, kernel_rows=True))
+    check_rank_records("rs_slerp_robust, 2 ranks on gloo", recs,
+                       RMSE_ANCHOR["rs_slerp_robust"],
+                       "banded_schur/cuda-sharded")
+    ba4 = synthetic.CONFIGS["rs_slerp_robust"](scale=1.0,
+                                               dtype=torch.float32,
+                                               device="cuda")
+    _, _, _, inp = kernel_inputs(ba4)
+    whole = fused.fused_evaluate_assemble_cuda(
+        *inp, model=ba4.problem.model, loss=ba4.problem.loss)
+    for r in recs:
+        r0, r1 = r["rows"]
+        for k, v in r.pop("kernel_out").items():
+            if not torch.equal(v, whole[k][r0:r1].cpu()):
+                raise AssertionError(f"rank {r['rank']}: kernel output {k} "
+                                     f"of rows [{r0}, {r1}) differs from "
+                                     "the one-process launch")
+        log(f"rank {r['rank']} rows [{r0}, {r1}): the kernel's six row "
+            f"outputs torch.equal to the one-process launch's rows  OK")
+    del ba4, inp, whole
+    torch.cuda.empty_cache()
+
+    # Config 1 on two gloo ranks through the flat sharded engines
+    for solver in ("iterative_schur", "dense_schur"):
+        flat = launch.spawn(dist_gpu.solve_rank, 2, "gloo", "cuda",
+                            dict(job, config="gs_small", solver=solver))
+        check_rank_records(f"gs_small {solver}, 2 ranks on gloo", flat,
+                           RMSE_ANCHOR["gs_small"],
+                           f"{solver}/torch-flat-sharded")
+
+    # The CLI's --shard on config 3 (one card: one rank on NCCL)
+    buf = io.StringIO()
+    fused.fused_evaluate_assemble_cuda.launches = 0
+    with contextlib.redirect_stdout(buf):
+        rc = run.main(["--config", "rs_video_linear", "--shard"])
+    launches_cli = fused.fused_evaluate_assemble_cuda.launches
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  cli --shard: {line}")
+    rec = next(json.loads(x) for x in reversed(lines) if x.startswith("{"))
+    if (rc != 0 or (rec["solver"], rec["evaluator"])
+            != ("banded_schur", "cuda-sharded") or launches_cli < 1
+            or abs(rec["final_rmse_inlier_px"]
+                   - RMSE_ANCHOR["rs_video_linear"]) > RMSE_TOL):
+        raise AssertionError(f"cli --shard rs_video_linear: rc {rc}, "
+                             f"{launches_cli} launches, {rec}")
+    log(f"cli --shard [{card}]: rs_video_linear "
+        f"{rec['final_rmse_inlier_px']:.5f} px through "
+        f"{rec['solver']}/{rec['evaluator']}, {launches_cli} kernel "
+        f"launches  OK")
+    return one["kernel_launches"], [r["kernel_launches"] for r in recs]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -772,6 +934,7 @@ def main() -> int:
         f"loop {host['wall']:.3f} s; sequences {again['seq']} / "
         f"{host['seq']}; CG iterations {again['cg']} / {host['cg']}")
     launches, launches_host = again["launches"], host["launches"]
+    host_seq = host["seq"]
     del first, again, host
     torch.cuda.empty_cache()
 
@@ -806,12 +969,17 @@ def main() -> int:
     cli_phase(card)
     torch.cuda.empty_cache()
 
+    # --- 10. the distributed solvers, functional only on one card ---------
+    launches_sharded, launches_sharded_ranks = dist_phase(card, host_seq)
+
     log(json.dumps({"kernels": [{
         "name": "fused_evaluate_assemble", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches, "launches_per_solve": launches,
         "launches_host_loop": launches_host,
         "launches_session": launches_session,
+        "launches_sharded_1rank_nccl": launches_sharded,
+        "launches_sharded_2rank_gloo": launches_sharded_ranks,
         "max_abs_err": err4, "max_abs_err_session": err_session,
         "ms": times["kernel"], "plain_ms": times["plain"],
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],

@@ -5,10 +5,10 @@ mirror ``rsba_tpu`` so each counterpart is easy to find; the JAX package
 stays the reference every ported part is tested against.  This package
 imports ``torch`` and never ``jax``.
 
-Ported so far: geometry, problem types, the synthetic generator, the
-whole solver, and what stands around it.  The solver: the banded window
-engine (``linear_solver="auto"`` on video-style problems) with the fused
-evaluate+assemble kernel (``kernels/fused.py``, CUDA source in
+Ported: geometry, problem types, the synthetic generator, the whole
+solver, what stands around it, and the sharded solvers.  The solver: the
+banded window engine (``linear_solver="auto"`` on video-style problems)
+with the fused evaluate+assemble kernel (``kernels/fused.py``, CUDA source in
 ``csrc/``), the flat ``dense``, ``dense_schur`` and ``iterative_schur``
 engines, the Schur-Jacobi and cluster-Jacobi preconditioners, dogleg,
 and the on-device LM loop (``solver/lm_device.py``), which on a CUDA
@@ -17,7 +17,10 @@ gradient check, BAL file I/O and PLY export (``io``), checkpoints and
 the roofline report (``utils``), triangulation, the two-view bootstrap,
 P3P, PnP and RANSAC registration, the incremental video-SfM session
 (``pipeline.SfmSession``) and the command line (``cli.run``).  The
-sharded solvers are not ported yet.
+sharded solvers (``dist``) run on ``torch.distributed``, one process per
+rank: the banded window solver split by trajectory rows, with the fused
+kernel on each rank's rows, and the flat solvers split by landmarks;
+``entry`` holds the counterparts of ``__graft_entry__.py``.
 """
 
 __version__ = "0.1.0"

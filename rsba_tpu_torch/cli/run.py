@@ -16,9 +16,17 @@ place of ``--platform``; ``--dtype`` defaults to f32 on the card and f64
 on the CPU; ``--evaluator`` is one of auto, cuda, torch; ``--profile-dir``
 writes a ``torch.profiler`` Chrome trace; ``--debug-nans`` runs the host
 loop and raises at the first non-finite cost, gradient or step; there is
-no compile cache; ``--shard`` and ``--multihost`` are parsed and raise
-NotImplementedError until the distributed solvers are ported (ROADMAP.md,
-item 17).
+no compile cache.
+
+Sharded runs (``dist``): ``--shard`` solves over one rank per visible
+card (NCCL), or over one rank with ``--device cpu``; ``--multihost``
+makes this process one rank of a world across processes or hosts
+(``--coordinator HOST:PORT --num-processes N --process-id I``, the same
+command in every process).  The banded window solver is preferred and
+the flat ``iterative_schur`` taken where the problem has no window
+layout.  Rank 0 alone prints the report and writes ``--jsonl``,
+``--ply`` (points in their original order) and checkpoints; every rank
+prints its final cost.
 """
 from __future__ import annotations
 
@@ -40,10 +48,6 @@ CONFIG_SOLVER_DEFAULTS = {
     "rs_slerp_robust": "auto",
     "rs_mhost_pcg": "auto",
 }
-
-_NOT_PORTED = ("is not ported yet: the distributed solvers are ROADMAP.md "
-               "item 17")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -91,11 +95,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cg-eta", type=float, default=1e-2)
     p.add_argument("--function-tolerance", type=float, default=1e-6)
     p.add_argument("--shard", action="store_true",
-                   help="multi-GPU sharded solver; " + _NOT_PORTED)
+                   help="sharded solver over one rank per visible card "
+                        "(NCCL), or one rank with --device cpu")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process sharded solver; " + _NOT_PORTED)
+                   help="make this process one rank of a world across "
+                        "processes or hosts (torch.distributed) before "
+                        "--shard; run the same command in every process")
     p.add_argument("--coordinator", default=None,
-                   help="coordinator HOST:PORT for --multihost")
+                   help="coordinator HOST:PORT for --multihost (default: "
+                        "env://, as torchrun sets it)")
     p.add_argument("--num-processes", type=int, default=None,
                    help="process count for --multihost")
     p.add_argument("--process-id", type=int, default=None,
@@ -153,19 +161,53 @@ def _raise_on_non_finite(fns: dict) -> dict:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if (args.shard or args.multihost or args.coordinator is not None
-            or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError("--shard / --multihost " + _NOT_PORTED)
-
     import torch
 
     from .. import default_device
+
+    device = default_device(None if args.device == "cuda" else args.device)
+    if args.multihost:
+        from ..dist import initialize_multihost, make_mesh
+        info = initialize_multihost(args.coordinator, args.num_processes,
+                                    args.process_id, device=device)
+        print(f"[rsba_tpu_torch] multihost: process {info['process_id']}/"
+              f"{info['process_count']}, {info['local_devices']} local / "
+              f"{info['global_devices']} global devices")
+        try:
+            return _run(args, make_mesh(device) if args.shard else None,
+                        device)
+        finally:
+            torch.distributed.destroy_process_group()
+    if args.shard:
+        from ..dist import launch
+        world = torch.cuda.device_count() if device.type == "cuda" else 1
+        if world == 1:
+            with launch.single_rank(device=device) as mesh:
+                return _run(args, mesh, device)
+        return launch.spawn(_shard_rank, world, None, device, args)[0]
+    return _run(args, None, device)
+
+
+def _shard_rank(mesh, args) -> int:
+    """One rank of ``--shard`` over several cards (``dist.launch``)."""
+    return _run(args, mesh, mesh.device)
+
+
+def _run(args, mesh, device) -> int:
+    """Generate or load the problem, solve it (sharded over ``mesh`` when
+    given) and report."""
+    import torch
+
     from ..problem import synthetic
+    from ..problem.types import params_from_numpy, problem_from_numpy
     from ..solver import lm
     from ..solver.options import SolverOptions
 
-    device = default_device(None if args.device == "cuda" else args.device)
+    if mesh is not None:
+        device = mesh.device
+    lead = (not torch.distributed.is_initialized()
+            or torch.distributed.get_rank() == 0)
+    say = print if lead else (lambda *a, **k: None)
     on_card = device.type == "cuda"
     if args.dtype is None:
         args.dtype = "f32" if on_card else "f64"
@@ -181,6 +223,11 @@ def main(argv=None) -> int:
         from ..io import bal
         problem, params0 = bal.load_bal(args.bal, dtype=dtype, device=device)
         name = args.bal
+    if mesh is not None:
+        # The whole problem stays on the host; each rank puts its block on
+        # its device.
+        problem = problem_from_numpy(problem, device="cpu", dtype=dtype)
+        params0 = params_from_numpy(params0, device="cpu", dtype=dtype)
 
     solver = (args.linear_solver
               or CONFIG_SOLVER_DEFAULTS.get(args.config or "", "dense_schur"))
@@ -196,10 +243,12 @@ def main(argv=None) -> int:
 
     where = (f"{torch.cuda.get_device_name(device)} "
              f"x{torch.cuda.device_count()}" if on_card else "cpu")
-    print(f"[rsba_tpu_torch] problem {name}: "
-          f"{int(torch.sum(problem.obs.mask))} observations, "
-          f"{params0.n_poses} poses, {params0.n_points} points | "
-          f"solver={solver} dtype={args.dtype} device={where}")
+    say(f"[rsba_tpu_torch] problem {name}: "
+        f"{int(torch.sum(problem.obs.mask))} observations, "
+        f"{params0.n_poses} poses, {params0.n_points} points | "
+        f"solver={solver} dtype={args.dtype} device={where}"
+        + (f" [sharded over {mesh.size} ranks, {mesh.backend}]"
+           if mesh is not None else ""))
 
     callback = None
     ckpt = None
@@ -207,9 +256,11 @@ def main(argv=None) -> int:
     if args.checkpoint_dir:
         from ..utils import SolverCheckpointer
         ckpt = SolverCheckpointer(args.checkpoint_dir, options=options)
-        callback = ckpt.callback
+        # Every rank takes a callback, since the solve gathers the points
+        # for it on all ranks at once; rank 0 alone writes.
+        callback = ckpt.callback if lead else (lambda *a: None)
         if args.resume:
-            restored = ckpt.restore(device=device)
+            restored = ckpt.restore(device=params0.device)
             if restored is not None:
                 it0, params0, radius = restored
                 options = dataclasses.replace(options, initial_radius=radius)
@@ -226,13 +277,20 @@ def main(argv=None) -> int:
                     # step, and adding the step's decrease gives it back.
                     resume_summary.initial_cost = (
                         history[0].cost + history[0].cost_change)
-                print(f"[rsba_tpu_torch] resumed from checkpoint step {it0} "
-                      f"(radius {radius:.3e}, "
-                      f"{len(history)} prior iteration records)")
+                say(f"[rsba_tpu_torch] resumed from checkpoint step {it0} "
+                    f"(radius {radius:.3e}, "
+                    f"{len(history)} prior iteration records)")
 
     fns = None
+    info = None
+    if mesh is not None:
+        from .. import dist
+        fns, problem, params0, options, info = dist.make_solver_fns(
+            problem, params0, options, mesh,
+            say=lambda m: say(f"[rsba_tpu_torch] {m}"))
     if args.debug_nans:
-        fns = _raise_on_non_finite(lm.make_solver_fns(problem, options))
+        fns = _raise_on_non_finite(
+            fns if fns is not None else lm.make_solver_fns(problem, options))
 
     profiler = contextlib.nullcontext()
     if args.profile_dir:
@@ -246,20 +304,21 @@ def main(argv=None) -> int:
                                    summary=resume_summary)
         if on_card:
             torch.cuda.synchronize(device)
-    if args.profile_dir:
+    if args.profile_dir and lead:
         os.makedirs(args.profile_dir, exist_ok=True)
         trace = os.path.join(args.profile_dir, "trace.json")
         prof.export_chrome_trace(trace)
-        print(f"[rsba_tpu_torch] wrote {trace}")
-    if ckpt is not None:
+        say(f"[rsba_tpu_torch] wrote {trace}")
+    if ckpt is not None and lead:
         ckpt.wait()
     wall = time.perf_counter() - t0
 
-    if args.full_report:
-        print(summary.full_report())
-    else:
-        print(summary.brief_report())
-    print(json.dumps({
+    if mesh is not None:
+        print(f"[rsba_tpu_torch] rank {mesh.rank} of {mesh.size}: final "
+              f"cost {summary.final_cost!r}")
+    say(summary.full_report() if args.full_report
+        else summary.brief_report())
+    say(json.dumps({
         "problem": name, "solver": summary.linear_solver,
         "evaluator": summary.evaluator, "dtype": args.dtype,
         "device": where,
@@ -270,12 +329,14 @@ def main(argv=None) -> int:
         "iterations": summary.num_iterations,
         "wall_s": round(wall, 3),
     }))
-    if args.jsonl:
+    if args.jsonl and lead:
         summary.write_jsonl(args.jsonl)
-    if args.ply:
+    if args.ply and lead:
         from ..io import bal as bal_io
+        if info is not None:
+            params = params.replace(points=info.restore_points(params.points))
         bal_io.export_ply(args.ply, params)
-        print(f"[rsba_tpu_torch] wrote {args.ply}")
+        say(f"[rsba_tpu_torch] wrote {args.ply}")
     return 0 if summary.termination in ("CONVERGENCE", "USER_SUCCESS") else 2
 
 

@@ -146,9 +146,12 @@ def evaluate_slots(qa, ca, qb, cb, intr, X, uv, t, mask, pf_a, pf_b, ptf,
     idx = torch.nonzero(mask.reshape(S) > 0).squeeze(1)   # valid slots
     flat = lambda a: a.reshape((S,) + tuple(a.shape[3:]))[idx]  # noqa: E731
     Xs = X[:, :, None, :].expand(grid + (3,))
-    r, J = torch.func.vmap(one, in_dims=(0, 0, 0, 0, None, 0, 0, 0))(
-        flat(qa), flat(ca), flat(qb), flat(cb), intr, flat(Xs), flat(uv),
-        flat(t))                                    # (V, 2), (V, 2, 15)
+    if idx.numel() > 0:
+        r, J = torch.func.vmap(one, in_dims=(0, 0, 0, 0, None, 0, 0, 0))(
+            flat(qa), flat(ca), flat(qb), flat(cb), intr, flat(Xs),
+            flat(uv), flat(t))                      # (V, 2), (V, 2, 15)
+    else:   # padding rows only (a block of a sharded solve)
+        r, J = t.new_zeros((0, 2)), t.new_zeros((0, 2, 2 * POSE_DOF + 3))
 
     r, J, rho = loss.correct(r, J)
     cost = 0.5 * torch.sum(rho)

@@ -2,8 +2,10 @@
 
 Counterpart of ``rsba_tpu/solver/banded_tpu.py``.  ``prepare`` runs the
 fused kernel (``kernels/fused.py``: the CUDA kernel on CUDA tensors, its
-plain PyTorch version otherwise), folds its window sums into poses and
-applies Jacobi scaling; ``solve_step`` works on the kernel's planes
+plain PyTorch version otherwise) and folds its window sums into poses
+(``evaluate_fold``), then applies Jacobi scaling (``scale_system``); the
+sharded engine (``dist/banded_sharded.py``) all-reduces between the two
+halves.  ``solve_step`` works on the kernel's planes
 layout, where per-point quantities carry the point axis G last:
 
     g_pt (NR, 3, G),  C (NR, 6, G) packed symmetric,  F (NR, W, 18, G)
@@ -27,7 +29,7 @@ from ..problem.types import POSE_DOF, Params, Problem
 from . import banded
 from .options import SolverOptions
 from .pcg import pcg
-from .schur import _lm_scaled_damp
+from .schur import _lm_scaled_damp, jacobi_scales
 from .window import WindowPlan
 
 C6_DIAG = fused.C6_DIAG
@@ -169,27 +171,32 @@ def kernel_inputs(params: Params, plan: WindowPlan, problem: Problem,
             st.tt, st.mask, st.offs, st.rsf, params.intr[0].contiguous())
 
 
-def prepare(plan: WindowPlan, problem: Problem, options: SolverOptions,
-            params: Params, evaluate, statics: KernelStatics) -> dict:
-    """Fused evaluate+assemble, window fold and Jacobi scaling.
-    ``evaluate`` is one of the kernels/fused.py entry points."""
+def evaluate_fold(plan: WindowPlan, problem: Problem, params: Params,
+                  evaluate, statics: KernelStatics) -> dict:
+    """First half of ``prepare``: the fused evaluate+assemble and the fold
+    of its window sums into poses.  ``evaluate`` is one of the
+    kernels/fused.py entry points.  On a block of rows the cost, ``g_cam``,
+    ``B0`` and ``B1`` are partial sums over its rows (the sharded engine
+    all-reduces them); the point-side ``g_pt``, ``c6`` and ``F`` are the
+    block's own."""
     out = evaluate(*kernel_inputs(params, plan, problem, statics),
                    model=problem.model, loss=problem.loss)
     P = plan.n_poses
-    g_cam = plan.fold(out["gw"])                     # (P, 6)
-    B0 = plan.fold(out["b0"]).reshape(P, 6, 6)
-    B1 = plan.fold(out["b1"]).reshape(P, 6, 6)
-    g_pt, c6, F = out["g_pt"], out["c6"], out["F"]
+    return {"cost": out["cost"], "g_cam": plan.fold(out["gw"]),
+            "B0": plan.fold(out["b0"]).reshape(P, 6, 6),
+            "B1": plan.fold(out["b1"]).reshape(P, 6, 6),
+            "g_pt": out["g_pt"], "c6": out["c6"], "F": out["F"]}
 
-    gmax = torch.maximum(g_cam.abs().max(), g_pt.abs().max())
-    d_cam = torch.diagonal(B0, dim1=-2, dim2=-1)     # (P, 6)
-    d_pt = _c6_diag(c6)                              # (NR, 3, G)
+
+def scale_system(plan: WindowPlan, options: SolverOptions, parts: dict,
+                 gradient_max_norm: torch.Tensor) -> dict:
+    """Second half of ``prepare``: Jacobi scaling of the folded system
+    (``evaluate_fold``'s dict, whole over the poses)."""
+    g_cam, B0, B1 = parts["g_cam"], parts["B0"], parts["B1"]
+    g_pt, c6, F = parts["g_pt"], parts["c6"], parts["F"]
+    s_cam, s_pt = jacobi_scales(torch.diagonal(B0, dim1=-2, dim2=-1),
+                                _c6_diag(c6), options)  # (P, 6), (NR, 3, G)
     if options.jacobi_scaling:
-        def scale(d):
-            return torch.where(
-                d > 0, 1.0 / (1.0 + torch.sqrt(torch.clamp(d, min=0.0))),
-                1.0)
-        s_cam, s_pt = scale(d_cam), scale(d_pt)
         g_cam = g_cam * s_cam
         g_pt = g_pt * s_pt
         c6 = c6 * torch.stack([s_pt[:, p] * s_pt[:, q]
@@ -202,12 +209,18 @@ def prepare(plan: WindowPlan, problem: Problem, options: SolverOptions,
         B0 = B0 * s_cam[:, :, None] * s_cam[:, None, :]
         # B1 couples pose p with p + 1: scale its columns by s_cam[p + 1].
         B1 = B1 * s_cam[:, :, None] * s_next[:, None, :]
-    else:
-        s_cam = torch.ones_like(d_cam)
-        s_pt = torch.ones_like(d_pt)
-    return {"cost": out["cost"], "g_cam": g_cam, "g_pt": g_pt, "c6": c6,
+    return {"cost": parts["cost"], "g_cam": g_cam, "g_pt": g_pt, "c6": c6,
             "F": F, "B0": B0, "B1": B1, "s_cam": s_cam, "s_pt": s_pt,
-            "gradient_max_norm": gmax}
+            "gradient_max_norm": gradient_max_norm}
+
+
+def prepare(plan: WindowPlan, problem: Problem, options: SolverOptions,
+            params: Params, evaluate, statics: KernelStatics) -> dict:
+    """Fused evaluate+assemble, window fold and Jacobi scaling."""
+    parts = evaluate_fold(plan, problem, params, evaluate, statics)
+    gmax = torch.maximum(parts["g_cam"].abs().max(),
+                         parts["g_pt"].abs().max())
+    return scale_system(plan, options, parts, gmax)
 
 
 def rho_slots(plan: WindowPlan, problem: Problem, params: Params):
@@ -234,20 +247,14 @@ def cost_decrease_pair(plan: WindowPlan, problem: Problem, rho_ref,
 
 # --- solve step --------------------------------------------------------------
 
-def schur_band_planes(F, c6inv, B0, B1, lm_cam, plan: WindowPlan):
-    """S_λ band (P, W, 6, 6) from planes-layout F and packed C⁻¹."""
-    S = -fcf_band_planes(F, c6inv, plan)
-    S[:, 0] += B0 + torch.diag_embed(lm_cam)
-    if plan.W > 1:
-        S[:, 1] += B1
-    return S
-
-
 def reduced_system(plan: WindowPlan, options: SolverOptions, aux: dict,
-                   radius):
+                   radius, psum=None):
     """The damped reduced camera system of one step: the S_λ band
     (P, W, 6, 6), its right-hand side b (P, 6), the packed C_λ⁻¹ and the
-    LM diagonals of the camera and point blocks."""
+    LM diagonals of the camera and point blocks.
+
+    ``psum(fcf, ey)``, where given, sums the two point-side terms over
+    the blocks of rows of a sharded solve (one all-reduce)."""
     P = plan.n_poses
     F, c6 = aux["F"], aux["c6"]
     d_cam = torch.diagonal(aux["B0"], dim1=-2, dim2=-1)
@@ -257,20 +264,33 @@ def reduced_system(plan: WindowPlan, options: SolverOptions, aux: dict,
     lm_pt, _ = _lm_scaled_damp(d_pt.reshape(-1), radius, options)
     lm_pt = lm_pt.reshape(d_pt.shape)                # (NR, 3, G)
     c6inv = invert_sym3_planes(_c6_add_diag(c6, lm_pt))
-    S = schur_band_planes(F, c6inv, aux["B0"], aux["B1"], lm_cam, plan)
-    # rhs: b = −g_cam − E C_λ⁻¹ (−g_pt)
-    b = -aux["g_cam"] - e_apply_planes(F, _cinv_apply(c6inv, -aux["g_pt"]),
-                                       plan)
+    fcf = fcf_band_planes(F, c6inv, plan)
+    ey = e_apply_planes(F, _cinv_apply(c6inv, -aux["g_pt"]), plan)
+    if psum is not None:
+        fcf, ey = psum(fcf, ey)
+    # S_λ = B_λ − F C_λ⁻¹ Fᵀ on the band, b = −g_cam − E C_λ⁻¹ (−g_pt).
+    S = -fcf
+    S[:, 0] += aux["B0"] + torch.diag_embed(lm_cam)
+    if plan.W > 1:
+        S[:, 1] += aux["B1"]
+    b = -aux["g_cam"] - ey
     return S, b, c6inv, lm_cam, lm_pt
 
 
 def solve_step(plan: WindowPlan, options: SolverOptions, aux: dict,
-               radius):
+               radius, psum=None):
     """Damped Schur solve: returns (dx, predicted decrease, CG iters).
-    ``radius`` is a float or a 0-dim tensor."""
+    ``radius`` is a float or a 0-dim tensor.
+
+    A sharded solve passes ``psum(*tensors)``, the sum of each tensor over
+    the blocks of rows: the reduced system's point-side terms and the
+    point terms of the predicted decrease go through it.  PCG then runs
+    on the whole band, the same on every block, and back-substitution
+    stays local."""
     P = plan.n_poses
     F, g_cam, g_pt = aux["F"], aux["g_cam"], aux["g_pt"]
-    S, b, c6inv, lm_cam, lm_pt = reduced_system(plan, options, aux, radius)
+    S, b, c6inv, lm_cam, lm_pt = reduced_system(plan, options, aux, radius,
+                                                psum)
     dc_flat, r_cg, iters = pcg(
         banded.make_band_matvec(S),
         banded.make_band_preconditioner(S, options.preconditioner),
@@ -279,48 +299,67 @@ def solve_step(plan: WindowPlan, options: SolverOptions, aux: dict,
     # Back-substitute landmarks.
     dp = _cinv_apply(c6inv, -g_pt - et_apply_planes(F, plan.pose_windows(dc)))
 
-    gTdx = torch.sum(g_cam * dc) + torch.sum(g_pt * dp)
-    dDd = torch.sum(lm_cam * dc * dc) + torch.sum(lm_pt * dp * dp)
+    pt_terms = torch.stack([torch.sum(g_pt * dp),
+                            torch.sum(lm_pt * dp * dp)])
+    if psum is not None:
+        # lm_pt > 0, so a non-finite dp on any block makes dDd and the
+        # predicted decrease non-finite on every block: all of them
+        # reject the step alike.
+        pt_terms, = psum(pt_terms)
+    gTdx = torch.sum(g_cam * dc) + pt_terms[0]
+    dDd = torch.sum(lm_cam * dc * dc) + pt_terms[1]
     predicted = 0.5 * (dDd - gTdx) - 0.5 * torch.dot(r_cg, dc_flat)
     dx = {"pose": aux["s_cam"] * dc, "pt": aux["s_pt"] * dp}
     return dx, predicted, iters
 
 
 def apply_step(plan: WindowPlan, problem: Problem, params: Params, dx,
-               ptf: torch.Tensor):
+               ptf: torch.Tensor, psum=None):
     """Retract the step: quaternion ⊞ on rotations, additive elsewhere.
-    Returns (new params, step norm, parameter norm)."""
+    Returns (new params, step norm, parameter norm); ``psum`` as in
+    ``solve_step`` sums the point terms of the two norms."""
     d_pose = dx["pose"] * problem.pose_free[:, None]
     d_pt = dx["pt"] * ptf[:, None, :]
     new = params.replace(q=quat.boxplus(params.q, d_pose[:, :3]),
                          c=params.c + d_pose[:, 3:],
                          points=params.points + d_pt)
-    step_norm = torch.sqrt(torch.sum(d_pose ** 2) + torch.sum(d_pt ** 2))
+    pt_terms = torch.stack([torch.sum(d_pt ** 2),
+                            torch.sum(params.points ** 2)])
+    if psum is not None:
+        pt_terms, = psum(pt_terms)
+    step_norm = torch.sqrt(torch.sum(d_pose ** 2) + pt_terms[0])
     x_norm = torch.sqrt(
-        torch.sum(params.c ** 2) + torch.sum(params.points ** 2)
+        torch.sum(params.c ** 2) + pt_terms[1]
         + torch.sum(params.q ** 2) + torch.sum(params.intr ** 2))
     return new, step_norm, x_norm
 
 
 # --- solver-fns dict ---------------------------------------------------------
 
-def make_fused_solver_fns(problem: Problem, plan: WindowPlan,
-                          options: SolverOptions) -> dict:
-    """Phase functions for ``lm.solve``: fused prepare + planes solve_step.
-
-    ``options.evaluator`` picks the prepare's evaluator: "cuda" the
-    kernel (raises on CPU tensors), "torch" its plain version, "auto" the
-    kernel on a CUDA problem and the plain version on a CPU one.
-    """
-    from .lm import inlier_threshold
-    thresh = inlier_threshold(problem)
+def pick_evaluator(options: SolverOptions, device: torch.device):
+    """(the prepare's evaluator, whether it is the CUDA kernel) for
+    ``options.evaluator`` on ``device``: "cuda" the kernel (raises on CPU
+    tensors), "torch" its plain version, "auto" the kernel on a CUDA
+    device and the plain version on the CPU."""
     evaluate = {"auto": fused.fused_evaluate_assemble,
                 "cuda": fused.fused_evaluate_assemble_cuda,
                 "torch": fused.fused_evaluate_assemble_reference,
                 }[options.evaluator]
-    use_kernel = (options.evaluator == "cuda"
-                  or (options.evaluator == "auto"
-                      and problem.device.type != "cpu"))
+    return evaluate, (options.evaluator == "cuda"
+                      or (options.evaluator == "auto"
+                          and device.type != "cpu"))
+
+
+def make_fused_solver_fns(problem: Problem, plan: WindowPlan,
+                          options: SolverOptions) -> dict:
+    """Phase functions for ``lm.solve``: fused prepare + planes solve_step.
+
+    ``options.evaluator`` picks the prepare's evaluator
+    (``pick_evaluator``).
+    """
+    from .lm import inlier_threshold
+    thresh = inlier_threshold(problem)
+    evaluate, use_kernel = pick_evaluator(options, problem.device)
     statics = kernel_statics(plan, problem)
     ptf = statics.ptf
     # Phase closures for the on-device loop (lm_device.py); ``bound`` is

@@ -13,7 +13,11 @@ slot)`` grid:
 Per-slot pose data is a gather over the row's W-window, and camera-side
 reductions sum per-row windows and fold them into per-pose rows through a
 static table of each pose's contributors: a gather and a sum in a fixed
-order, so two runs on the same data give the same bits.
+order, so two runs on the same data give the same bits.  The few poses
+with far more contributors than the rest (pose 0 collects every row of
+the points without observations, whose window base is 0) keep their
+surplus in a second table, so that the first stays as narrow as the
+common poses need.
 
 Applicability: every point's observations touch a pose window of bounded
 span, pose_b ∈ {pose_a, pose_a + 1}, and a single fixed intrinsics
@@ -29,9 +33,10 @@ import torch
 
 from ..problem.types import Problem
 
-#: widest pose window a point's track may span
+#: widest pose window the kernel takes, and build_window_plan's default
 MAX_WINDOW = 24
-#: the points-per-row and row counts are padded to multiples of this
+#: the points per row, and by default the row count, are padded to
+#: multiples of this
 PAD_MULTIPLE = 8
 
 
@@ -56,15 +61,21 @@ class WindowPlan:
     rs_ab: torch.Tensor       # (NR, G, L) 1.0 where pose_b == pose_a + 1
     point_id: torch.Tensor    # (NR, G) int64 original point index (M: pad)
     #: (P, K) int64 flat (row·W + w) window cells that fold into each pose,
-    #: in increasing order, padded with NR·W (a zero cell)
+    #: in increasing order, padded with NR·W (a zero cell): the first K of
+    #: each pose's cells
     fold_idx: Optional[torch.Tensor] = None
+    #: (H,) int64 the poses with more than K cells, and (H, K') their
+    #: further cells, padded alike
+    heavy_pose: Optional[torch.Tensor] = None
+    heavy_idx: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.fold_idx is None:
-            table = _fold_table(self.row_base.detach().cpu().numpy(), self.W,
-                                self.n_poses)
-            self.fold_idx = torch.as_tensor(table,
-                                            device=self.row_base.device)
+            tables = _fold_tables(self.row_base.detach().cpu().numpy(),
+                                  self.W, self.n_poses)
+            self.fold_idx, self.heavy_pose, self.heavy_idx = (
+                torch.as_tensor(t, device=self.row_base.device)
+                for t in tables)
 
     @property
     def offs_b(self) -> torch.Tensor:
@@ -85,10 +96,16 @@ class WindowPlan:
         out[row_base[r] + w] += v[r, w].  Each pose gathers its
         contributing window cells and sums them in the table's order (no
         atomics, no host read: the same bits every run, and it can be
-        captured in a CUDA graph)."""
+        captured in a CUDA graph); a heavy pose adds the sum of its
+        further cells to that of its first K."""
         rest = tuple(v.shape[2:])
         cells = torch.cat([v.reshape((-1,) + rest), v.new_zeros((1,) + rest)])
-        return cells[self.fold_idx].sum(dim=1)
+        out = cells[self.fold_idx].sum(dim=1)
+        if self.heavy_pose.numel():
+            hp = self.heavy_pose
+            out = out.index_put((hp,), out[hp]
+                                + cells[self.heavy_idx].sum(dim=1))
+        return out
 
     def _select(self, win: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
         rows = torch.arange(self.NR, device=offs.device)[:, None, None]
@@ -120,31 +137,69 @@ class WindowPlan:
         """(M,) → (NR, G) via the point permutation (sentinel 0)."""
         return torch.cat([v, v.new_zeros((1,))])[self.point_id]
 
+    def rows(self, r0: int, r1: int) -> "WindowPlan":
+        """The plan of rows [r0, r1), in memory of its own: ``NR = r1 −
+        r0``, the same poses and points (``point_id`` keeps global point
+        indices), and a fold table built from its own ``row_base``, so
+        its folds are partial sums over all poses."""
+        if not 0 <= r0 <= r1 <= self.NR:
+            raise ValueError(f"rows [{r0}, {r1}) of a plan of {self.NR}")
+        return WindowPlan(
+            NR=r1 - r0, G=self.G, L=self.L, W=self.W, n_poses=self.n_poses,
+            n_points=self.n_points,
+            **{f: getattr(self, f)[r0:r1].clone() for f in _ROW_FIELDS})
 
-def _fold_table(row_base: np.ndarray, W: int, n_poses: int) -> np.ndarray:
-    """(P, K) flat window cells (row·W + w) whose pose is p, in increasing
-    order, padded with the sentinel NR·W."""
+    def to(self, device) -> "WindowPlan":
+        """The plan with its tensors on ``device``."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device)
+                     for f in _ROW_FIELDS + _FOLD_FIELDS})
+
+
+#: the WindowPlan fields with one entry per row, and the fold's tables
+_ROW_FIELDS = ("row_base", "uv", "t", "mask", "offs_a", "rs_ab", "point_id")
+_FOLD_FIELDS = ("fold_idx", "heavy_pose", "heavy_idx")
+
+
+def _fold_tables(row_base: np.ndarray, W: int, n_poses: int):
+    """Each pose's flat window cells (row·W + w), in increasing order,
+    padded with the sentinel NR·W: (fold_idx, heavy_pose, heavy_idx).
+    The first table's width K minimises the cells of both tables together,
+    P·K + H·(K_max − K), where H poses have more than K cells."""
     NR = row_base.shape[0]
     pose = (row_base[:, None] + np.arange(W)[None, :]).reshape(-1)
     cell = np.nonzero(pose < n_poses)[0]
     cell = cell[np.argsort(pose[cell], kind="stable")]
     pose = pose[cell]
     counts = np.bincount(pose, minlength=n_poses)
-    start = np.cumsum(counts) - counts
-    table = np.full((n_poses, max(int(counts.max()), 1)), NR * W, np.int64)
-    table[pose, np.arange(pose.size) - start[pose]] = cell
-    return table
+    k_max = max(int(counts.max()), 1)
+    ks = np.unique(np.maximum(counts, 1))
+    padded = [n_poses * w + (counts > w).sum() * (k_max - w) for w in ks]
+    k = int(ks[np.argmin(padded)])
+    heavy = np.nonzero(counts > k)[0]
+    pos = np.arange(pose.size) - (np.cumsum(counts) - counts)[pose]
+    table = np.full((n_poses, k), NR * W, np.int64)
+    first = pos < k
+    table[pose[first], pos[first]] = cell[first]
+    extra = np.full((heavy.size, k_max - k), NR * W, np.int64)
+    row_of = np.searchsorted(heavy, pose[~first])
+    extra[row_of, pos[~first] - k] = cell[~first]
+    return table, heavy, extra
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def build_window_plan(problem: Problem) -> Optional[WindowPlan]:
+def build_window_plan(problem: Problem, max_window: int = MAX_WINDOW,
+                      nr_multiple: int = PAD_MULTIPLE
+                      ) -> Optional[WindowPlan]:
     """Host-side (numpy) plan construction; the plan's tensors live on the
     problem's device.  Returns None when the problem does not fit the
-    window layout.  Points per row G is the 95th percentile of points per
-    window base, so padding stays bounded under skew."""
+    window layout or a track spans more than ``max_window`` poses.
+    Points per row G is the 95th percentile of points per window base, so
+    padding stays bounded under skew; the row count is padded to a
+    multiple of ``nr_multiple`` (the sharded solver splits it evenly)."""
     if problem.intr_tangent_dim != 0 or problem.intr_free.shape[0] != 1:
         return None
     obs = problem.obs
@@ -179,7 +234,7 @@ def build_window_plan(problem: Problem) -> Optional[WindowPlan]:
     lo[~has_obs] = 0
     hi[~has_obs] = 0
     W = int((hi - lo + 1)[has_obs].max())
-    if W > MAX_WINDOW:
+    if W > max_window:
         return None
     base = lo
 
@@ -200,7 +255,7 @@ def build_window_plan(problem: Problem) -> Optional[WindowPlan]:
     row_len = np.minimum(G, b_counts[row_base0] - row_in_base * G)
 
     # Pad the row count with empty masked rows.
-    NR = _round_up(max(NR0, 1), PAD_MULTIPLE)
+    NR = _round_up(max(NR0, 1), nr_multiple)
     row_base = np.zeros(NR, dtype=np.int64)
     row_base[:NR0] = row_base0
 

@@ -165,13 +165,45 @@ def test_fold_is_the_adjoint_of_pose_windows(plan):
     assert float(lhs) == pytest.approx(float(rhs), rel=1e-12)
 
 
-def test_fold_table_lists_every_cell_once(plan):
-    idx = plan.fold_idx.numpy()
+def _pose_cells(plan):
+    """Each pose's cells from both fold tables, in table order."""
     sentinel = plan.NR * plan.W
-    cells = idx[idx < sentinel]
+    lists = [list(r) for r in plan.fold_idx.numpy()]
+    for p, r in zip(plan.heavy_pose.numpy(), plan.heavy_idx.numpy()):
+        lists[p] += list(r)
+    return [np.asarray([c for c in r if c < sentinel], np.int64)
+            for r in lists]
+
+
+def test_fold_table_lists_every_cell_once(plan):
+    lists = _pose_cells(plan)
+    cells = np.concatenate(lists)
     assert len(np.unique(cells)) == len(cells)
     pose = (plan.row_base.numpy()[:, None] + np.arange(plan.W)).reshape(-1)
     assert len(cells) == int((pose < plan.n_poses).sum())
     for p in (0, plan.n_poses // 2, plan.n_poses - 1):
-        mine = idx[p][idx[p] < sentinel]
+        mine = lists[p]
         assert (pose[mine] == p).all() and (np.diff(mine) > 0).all()
+
+
+@pytest.mark.parametrize("block", ["whole", "first_half", "second_half"])
+def test_fold_splits_off_heavy_poses(block):
+    """Config 5's points without observations have window base 0, so pose
+    0 collects far more cells than any other pose.  Its surplus goes to
+    the second table: the two tables hold at most two thirds of the cells
+    of one table as wide as the longest list (1.7 to 2.3 times fewer
+    here), on the whole plan and on each half of its rows, and the fold
+    still equals the index-add fold (rtol 1e-12)."""
+    ba = tsyn.CONFIGS["rs_mhost_pcg"](scale=0.02, device="cpu")
+    whole = window.build_window_plan(ba.problem, nr_multiple=16)
+    h = whole.NR // 2
+    plan = {"whole": whole, "first_half": whole.rows(0, h),
+            "second_half": whole.rows(h, whole.NR)}[block]
+    pose = (plan.row_base[:, None] + torch.arange(plan.W)).reshape(-1)
+    k_max = int(torch.bincount(pose[pose < plan.n_poses]).max())
+    held = plan.fold_idx.numel() + plan.heavy_idx.numel()
+    assert 3 * held <= 2 * plan.n_poses * k_max
+    v = torch.as_tensor(np.random.RandomState(1).randn(plan.NR, plan.W, 6))
+    np.testing.assert_allclose(plan.fold(v).numpy(),
+                               _fold_index_add(plan, v).numpy(),
+                               rtol=1e-12, atol=1e-12)

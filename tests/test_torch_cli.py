@@ -4,8 +4,9 @@
 JSONL, PLY and the full report, the in-repo BAL sample, a video preset
 through the banded engine, a checkpointed run resumed from its directory
 (the history continues), ``--check-gradients``, ``--debug-nans``,
-``--profile-dir``, the arguments that wait for the distributed solvers
-(NotImplementedError), and the default device, which is the card.  One
+``--profile-dir``, the sharded runs (``--shard`` on one CPU rank, its
+fallback to the flat solver, its PLY, and ``--multihost`` over two
+processes), and the default device, which is the card.  One
 subprocess covers the console entry's argument errors, and one the
 package boundary: importing every module of the port loads neither
 ``jax`` nor ``orbax`` nor ``rsba_tpu``.
@@ -14,9 +15,11 @@ import json
 import os
 import pathlib
 import pkgutil
+import socket
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -130,13 +133,105 @@ def test_cli_debug_nans_and_profile(tmp_path, capsys):
         fns["solve_step"](aux, float("nan"))
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def test_cli_multihost_two_processes():
+    """tests/test_multihost.py's counterpart: two CPU processes over a
+    localhost coordinator, one gloo world, the banded sharded engine; both
+    ranks print the same final cost, rank 0 alone the report."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "rsba_tpu_torch.cli.run", "--device=cpu",
+         "--config=rs_video_linear", "--scale=0.02", "--max-iterations=25",
+         "--shard", "--multihost", f"--coordinator=localhost:{port}",
+         "--num-processes=2", f"--process-id={i}"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="2"))
+        for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"process {i}:\n{out[-3000:]}"
+        assert f"multihost: process {i}/2" in out
+    costs = [line.split("final cost ")[1] for out in outs
+             for line in out.splitlines() if "final cost " in line]
+    assert len(costs) == 2 and costs[0] == costs[1], costs
+    rec = last_json(outs[0])
+    assert (rec["solver"], rec["evaluator"], rec["termination"]) == (
+        "banded_schur", "torch-sharded", "CONVERGENCE")
+    assert "{" not in outs[1]                    # rank 1 prints no record
+
+
+def test_cli_shard_on_the_cpu_takes_one_rank(capsys):
+    rc, out = run_main(capsys, "--config=rs_video_linear", "--scale=0.02",
+                       "--max-iterations=25", "--shard")
+    assert rc == 0, out[-2000:]
+    assert "[sharded over 1 ranks, gloo]" in out
+    assert "rank 0 of 1: final cost" in out
+    rec = last_json(out)
+    assert rec["termination"] == "CONVERGENCE"
+    assert (rec["solver"], rec["evaluator"]) == ("banded_schur",
+                                                 "torch-sharded")
+    assert rec["final_rmse_inlier_px"] < 0.8
+
+
+def test_cli_shard_falls_back_to_the_flat_solver(capsys):
+    """gs_bal's optimizable intrinsics have no window layout: ``auto``
+    falls back to the flat landmark-sharded iterative_schur, as in the
+    reference."""
+    rc, out = run_main(capsys, "--config=gs_bal", "--scale=0.04",
+                       "--linear-solver=auto", "--shard")
+    assert rc == 0, out[-2000:]
+    assert "window layout unavailable" in out
+    rec = last_json(out)
+    assert (rec["solver"], rec["evaluator"], rec["termination"]) == (
+        "iterative_schur", "torch-flat-sharded", "CONVERGENCE")
+
+
 @pytest.mark.parametrize("argv", [
-    ["--shard"], ["--multihost"], ["--coordinator", "localhost:1234"],
-    ["--num-processes", "2"], ["--process-id", "0"]])
-def test_cli_distributed_arguments_wait_for_their_port(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 17"):
-        cli_run.main(["--device", "cpu", "--config=rs_video_linear",
-                      "--scale=0.02", *argv])
+    ["--config=rs_video_linear", "--scale=0.02", "--max-iterations=25"],
+    ["--config=gs_bal", "--scale=0.04"]], ids=["banded", "flat"])
+def test_cli_shard_ply_keeps_the_point_order(tmp_path, capsys, argv):
+    """The PLY of a sharded solve lists the points in the problem's own
+    order (the flat engine's repartition undone by restore_points): each
+    lies near its ground truth."""
+    from rsba_tpu_torch.problem import synthetic
+    ply = tmp_path / "cloud.ply"
+    rc, out = run_main(capsys, *argv, "--shard", f"--ply={ply}")
+    assert rc == 0, out[-2000:]
+    name = argv[0].split("=")[1]
+    scale = float(argv[1].split("=")[1])
+    gt = synthetic.CONFIGS[name](scale=scale, dtype=torch.float64,
+                                 device="cpu").params_gt.points.numpy()
+    lines = ply.read_text().splitlines()
+    start = lines.index("end_header") + 1
+    pts = np.array([[float(v) for v in x.split()[:3]]
+                    for x in lines[start:start + gt.shape[0]]])
+    err = np.linalg.norm(pts - gt, axis=1)
+    assert np.median(err) < 0.05 * np.linalg.norm(gt - gt.mean(0),
+                                                  axis=1).mean()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
+    ["--process-id", "0"]], ids=["coordinator", "num_processes",
+                                 "process_id"])
+def test_cli_multihost_arguments_without_multihost_are_unused(capsys, argv):
+    """As in the reference, the coordinator, process count and id are
+    read only with --multihost: without it the run is the plain one."""
+    rc, out = run_main(capsys, "--config=gs_small", "--scale=0.05", *argv)
+    assert rc == 0, out[-2000:]
+    assert "sharded" not in out and "multihost" not in out
+    assert last_json(out)["evaluator"] == "torch-flat+device_loop"
 
 
 def test_cli_defaults_to_the_card():
@@ -157,7 +252,7 @@ def test_cli_console_entry_rejects_bad_arguments():
         capture_output=True, text=True, timeout=120, cwd=REPO)
     assert r.returncode == 0
     for word in ("--device", "takes the place of", "torch.profiler",
-                 "ROADMAP.md item 17", "f32 on the card"):
+                 "one rank per visible card", "f32 on the card"):
         assert word in " ".join(r.stdout.split()), word
 
 
@@ -176,7 +271,13 @@ def test_import_of_every_module_leaves_jax_out():
                  "rsba_tpu_torch.solver.ransac",
                  "rsba_tpu_torch.solver.covariance",
                  "rsba_tpu_torch.solver.gradient_check",
-                 "rsba_tpu_torch.tools.pipeline_gpu"):
+                 "rsba_tpu_torch.tools.pipeline_gpu",
+                 "rsba_tpu_torch.dist", "rsba_tpu_torch.dist.mesh",
+                 "rsba_tpu_torch.dist.partition",
+                 "rsba_tpu_torch.dist.launch",
+                 "rsba_tpu_torch.dist.banded_sharded",
+                 "rsba_tpu_torch.dist.sharded", "rsba_tpu_torch.entry",
+                 "rsba_tpu_torch.tools.dist_gpu"):
         assert need in names
     code = (
         "import sys, importlib; sys.path.insert(0, sys.argv[1]); "

@@ -135,7 +135,11 @@ def test_import_leaves_jax_out():
         "rsba_tpu_torch.geometry.triangulate, rsba_tpu_torch.io.bal, "
         "rsba_tpu_torch.utils.checkpoint, rsba_tpu_torch.utils.roofline, "
         "rsba_tpu_torch.pipeline.session, rsba_tpu_torch.cli.run, "
-        "rsba_tpu_torch.tools.pipeline_gpu; "
+        "rsba_tpu_torch.tools.pipeline_gpu, rsba_tpu_torch.dist, "
+        "rsba_tpu_torch.dist.mesh, rsba_tpu_torch.dist.partition, "
+        "rsba_tpu_torch.dist.launch, rsba_tpu_torch.dist.banded_sharded, "
+        "rsba_tpu_torch.dist.sharded, rsba_tpu_torch.entry, "
+        "rsba_tpu_torch.tools.dist_gpu; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'rsba_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)")
