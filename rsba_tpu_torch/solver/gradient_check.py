@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..geometry import Loss
-from ..problem.types import POSE_DOF, Params, Problem
+from ..problem.types import POSE_DOF, Params, Problem, problem_from_numpy
 from . import residuals
 
 
@@ -35,10 +35,15 @@ def check_gradients(problem: Problem, params: Params,
     ValueError when the worst relative error (with an absolute floor
     scaled to the Jacobian's magnitude) exceeds ``relative_precision``.
 
-    The differences run in the problem's dtype; in float32 the practical
-    floor is about 1e-3, so pass a matching ``relative_precision``.
-    ``step`` defaults to eps**(1/3), the central-difference optimum.  The
-    sample is drawn with ``np.random.RandomState(0)``.
+    The forward-mode Jacobian is taken in the problem's dtype: it is what
+    the check checks.  The central differences always run in float64, on
+    a float64 twin of the sampled problem and parameters, as Ceres's
+    GradientChecker differences in double: in float32 they would carry
+    the projections' round-off over the step (about 1e-2 of the Jacobian
+    on config 1), and the check could not tell a correct float32
+    Jacobian from a wrong one.  ``step`` defaults to float64's
+    eps**(1/3), the central-difference optimum.  The sample is drawn with
+    ``np.random.RandomState(0)``.
     """
     obs = problem.obs
     valid = np.nonzero(obs.mask.detach().cpu().numpy() > 0)[0]
@@ -52,8 +57,8 @@ def check_gradients(problem: Problem, params: Params,
         f.name: getattr(obs, f.name)[sel_t]
         for f in dataclasses.fields(obs)})
 
-    dtype = params.dtype
-    h = (float(torch.finfo(dtype).eps) ** (1.0 / 3.0) if step is None
+    f64 = torch.float64
+    h = (float(torch.finfo(f64).eps) ** (1.0 / 3.0) if step is None
          else step)
 
     # Uncorrected Jacobians: a trivial-loss view of the sampled problem
@@ -64,9 +69,13 @@ def check_gradients(problem: Problem, params: Params,
     J_ad = torch.cat([ev.J_pose[:, :, 0, :], ev.J_pose[:, :, 1, :],
                       ev.J_intr, ev.J_pt], dim=-1)           # (n, 2, 15+ni)
 
+    if params.dtype != f64:
+        plain = problem_from_numpy(plain, device=problem.device, dtype=f64)
+        params = params.astype(f64)
+        sub = plain.obs
     f = residuals.gathered_residual_fn(plain)
     dim = 2 * POSE_DOF + ni + 3
-    eye = torch.eye(dim, dtype=dtype, device=problem.device) * h
+    eye = torch.eye(dim, dtype=f64, device=problem.device) * h
 
     def res_at(d, *gathered):
         d_pa, d_pb, d_i, d_pt = torch.split(d, [POSE_DOF, POSE_DOF, ni, 3])

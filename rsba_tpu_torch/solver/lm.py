@@ -199,8 +199,14 @@ def solve(problem: Problem, params: Params,
     invalid_steps = 0
     terminated = False
     dogleg_rule = options.trust_region_strategy == "dogleg"
+    # Below float64 a rejected full Gauss-Newton step halves the radius
+    # from its own norm, and the dogleg ends at the optimum (gn_flat
+    # below); in float64 its rules are the reference's.
+    dogleg_f32 = dogleg_rule and problem.obs.uv.dtype != torch.float64
     if dogleg_rule:
-        from .dogleg import update_radius_dogleg
+        from .dogleg import cost_resolution, update_radius_dogleg
+    if dogleg_f32:
+        resolution = cost_resolution(problem)
 
     for _ in range(options.max_iterations):
         it_t0 = time.perf_counter()
@@ -226,6 +232,12 @@ def solve(problem: Problem, params: Params,
         rho = 0.0
         step_norm = 0.0
         new_cost = cost
+        if dogleg_f32:
+            gn_norm = float(aux["gn_norm"])
+            flat_tol = max(options.function_tolerance * cost,
+                           resolution * math.sqrt(max(cost, 0.0)))
+        else:
+            gn_norm = math.inf
         while not accepted and radius >= options.min_radius:
             t0 = time.perf_counter()
             dx, predicted, lin_iters = fns["solve_step"](aux, radius)
@@ -234,7 +246,16 @@ def solve(problem: Problem, params: Params,
             summary.linear_solver_time += time.perf_counter() - t0
             cand, snorm, x_norm = fns["apply_step"](params, dx)
             step_norm = float(snorm)
-            if not (dx_finite and pred > 0 and math.isfinite(pred)):
+            # Dogleg below float64: the attempt is the full Gauss-Newton
+            # point, the model's exact minimiser.  If it predicts no more
+            # than function tolerance, or than the dtype resolves of a
+            # cost change, in either sign, the model has nothing left to
+            # give that could be verified: rejected, it ends the solve.
+            gn_step = gn_norm <= radius
+            gn_flat = (gn_step and dx_finite and math.isfinite(pred)
+                       and abs(pred) <= flat_tol)
+            if not (gn_flat or (dx_finite and pred > 0
+                                and math.isfinite(pred))):
                 # Invalid step: shrink and retry (Ceres counts these).
                 invalid_steps += 1
                 radius /= decrease_factor
@@ -248,8 +269,9 @@ def solve(problem: Problem, params: Params,
             # Pairwise-differenced decrease (f32-safe).
             decrease = float(fns["cost_decrease"](params, cand))
             new_cost = cost - decrease
-            rho = decrease / pred
-            if math.isfinite(new_cost) and rho > options.min_relative_decrease:
+            rho = decrease / pred if pred > 0 else 0.0
+            if (pred > 0 and math.isfinite(new_cost)
+                    and rho > options.min_relative_decrease):
                 accepted = True
                 if dogleg_rule:
                     radius = update_radius_dogleg(radius, rho, step_norm,
@@ -263,14 +285,22 @@ def solve(problem: Problem, params: Params,
             else:
                 if dogleg_rule:
                     radius = update_radius_dogleg(radius, rho, step_norm,
-                                                  False, options)
+                                                  False, options, gn_step)
                 else:
                     radius /= decrease_factor
                     decrease_factor *= 2.0
+                if gn_flat:
+                    summary.termination = "CONVERGENCE"
+                    summary.message = (
+                        f"function tolerance reached: the Gauss-Newton "
+                        f"step predicts {pred:.3e} <= {flat_tol:.3e}, "
+                        f"|Δcost| {abs(cost - new_cost):.3e}, on cost "
+                        f"{cost:.6e}")
+                    terminated = True
                 # Stagnation: predicted and actual change both below
                 # function tolerance — the optimum is resolved to working
                 # precision.
-                if (pred <= options.function_tolerance * cost
+                elif (pred <= options.function_tolerance * cost
                         and abs(cost - new_cost)
                         <= options.function_tolerance * cost):
                     summary.termination = "CONVERGENCE"

@@ -9,9 +9,10 @@ dims (rtol 1e-6).  ``check_gradients``: the two reports agree at 1e-6
 (absolute: both are finite-difference round-off near 1e-8), a
 deliberately wrong Jacobian raises, and ``SolverOptions(check_gradients=
 True)`` runs the check inside ``solve``.  In float32 at config 1's full
-size both packages' checks read the same 8e-3, above the 2e-3 that both
-``solve``s take as the float32 default: the differences' round-off on
-pixel-sized residuals, not a wrong Jacobian.
+size the reference's check reads 8e-3, above the 2e-3 that its ``solve``
+takes as the float32 default: its differences' round-off on pixel-sized
+residuals, not a wrong Jacobian.  The port differences in float64 and
+reads 2e-5 there, and still refuses a Jacobian that is 1% wrong.
 """
 import dataclasses
 
@@ -117,22 +118,23 @@ def test_check_gradients_matches_reference(solved, which):
     assert got["max_relative_error"] == pytest.approx(
         want["max_relative_error"], abs=1e-6)
     assert got["max_relative_error"] < 1e-6
-    # float32: the same check floors near 1e-3
+    # float32: the forward-mode Jacobian's own round-off, about 1e-4,
+    # against float64 differences
     p32 = ttypes.problem_from_numpy(ba.problem, device="cpu",
                                     dtype=torch.float32)
     x32 = ttypes.params_from_numpy(jp, device="cpu", dtype=torch.float32)
     rep = check_gradients(p32, x32, relative_precision=5e-2)
-    assert 1e-6 < rep["max_relative_error"] < 5e-2
+    assert 1e-6 < rep["max_relative_error"] < 2e-3
 
 
-def test_float32_check_at_config1_size_reads_the_same_in_both_packages():
-    """50 poses, 5,000 points, float32: the size and dtype at which the
-    GPU smoke run checks at 2e-2.  The sample and the step are the same on
-    both sides, so at the initial parameters (where ``solve`` checks) the
-    two reports agree far below their own value, and both exceed the 2e-3
-    default of a float32 solve: the reference raises there as the port
-    does.  At the ground truth, where residuals are the pixel noise, both
-    stay between 2e-3 and 2e-2."""
+def test_float32_check_at_config1_size_passes_in_the_port_only():
+    """50 poses, 5,000 points, float32, at the initial parameters (where
+    ``solve`` checks) and at the ground truth (residuals of the pixel
+    noise).  The reference differences in float32 and reads between
+    2e-3 and 2e-2, so its float32 default of 2e-3 refuses this correct
+    Jacobian.  The port differences in float64: it reads below 2e-4 on
+    the same sample, its float32 ``solve(check_gradients=True)`` passes
+    at the default, and J_pt scaled by 1.01 still raises."""
     ba = jsyn.CONFIGS["gs_small"](scale=1.0, dtype=jnp.float32)
     assert ba.params0.q.dtype == jnp.float32
     problem = ttypes.problem_from_numpy(ba.problem, device="cpu",
@@ -141,20 +143,16 @@ def test_float32_check_at_config1_size_reads_the_same_in_both_packages():
                                   dtype=torch.float32)
     assert x0.n_poses == 50 and x0.n_points == 5000
     want = jcheck(ba.problem, ba.params0, relative_precision=2e-2)
-    got = check_gradients(problem, x0, relative_precision=2e-2)
+    got = check_gradients(problem, x0, relative_precision=2e-4)
     assert got["n_checked"] == want["n_checked"] == 64
-    assert got["worst_obs"] == want["worst_obs"]
-    assert got["max_relative_error"] == pytest.approx(
-        want["max_relative_error"], abs=1e-4)
     assert 2e-3 < want["max_relative_error"] < 2e-2
-    assert 2e-3 < got["max_relative_error"] < 2e-2
-    # the float32 default of both solves refuses this correct Jacobian
+    assert got["max_relative_error"] < 2e-4
     with pytest.raises(ValueError, match="gradient check FAILED"):
         jcheck(ba.problem, ba.params0, relative_precision=2e-3)
-    with pytest.raises(ValueError, match="gradient check FAILED"):
-        solve(problem, x0, SolverOptions(linear_solver="dense_schur",
-                                         max_iterations=1,
-                                         check_gradients=True))
+    _, s = solve(problem, x0, SolverOptions(linear_solver="dense_schur",
+                                            max_iterations=1,
+                                            check_gradients=True))
+    assert s.num_iterations == 1
     # the same Jacobian in float64 passes at 1e-5
     p64 = ttypes.problem_from_numpy(ba.problem, device="cpu",
                                     dtype=torch.float64)
@@ -163,9 +161,17 @@ def test_float32_check_at_config1_size_reads_the_same_in_both_packages():
     assert check_gradients(p64, x64)["max_relative_error"] < 1e-5
     xgt = ttypes.params_from_numpy(ba.params_gt, device="cpu",
                                    dtype=torch.float32)
-    for rep in (jcheck(ba.problem, ba.params_gt, relative_precision=2e-2),
-                check_gradients(problem, xgt, relative_precision=2e-2)):
-        assert 2e-3 < rep["max_relative_error"] < 2e-2
+    rep = jcheck(ba.problem, ba.params_gt, relative_precision=2e-2)
+    assert 2e-3 < rep["max_relative_error"] < 2e-2
+    assert check_gradients(problem, xgt, relative_precision=2e-4)[
+        "max_relative_error"] < 2e-4
+    evaluate = residuals.evaluate
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gradient_check.residuals, "evaluate",
+                   lambda params, problem: evaluate(params, problem)._replace(
+                       J_pt=evaluate(params, problem).J_pt * 1.01))
+        with pytest.raises(ValueError, match="gradient check FAILED"):
+            check_gradients(problem, x0, relative_precision=2e-3)
 
 
 def test_check_gradients_raises_on_a_wrong_jacobian(solved, monkeypatch):
@@ -179,7 +185,15 @@ def test_check_gradients_raises_on_a_wrong_jacobian(solved, monkeypatch):
     monkeypatch.setattr(gradient_check.residuals, "evaluate", wrong)
     with pytest.raises(ValueError, match="gradient check FAILED"):
         check_gradients(problem, params0)
+    # float32 at its default of 2e-3: the wrong Jacobian reads 1e-2
+    p32 = ttypes.problem_from_numpy(problem, device="cpu",
+                                    dtype=torch.float32)
+    x32 = params0.astype(torch.float32)
+    with pytest.raises(ValueError, match="gradient check FAILED"):
+        check_gradients(p32, x32, relative_precision=2e-3)
     monkeypatch.undo()
+    assert check_gradients(p32, x32, relative_precision=2e-3)[
+        "max_relative_error"] < 2e-4
     # no valid observation: nothing to check
     empty = problem.replace(obs=problem.obs.replace(
         mask=torch.zeros_like(problem.obs.mask)))
