@@ -727,7 +727,7 @@ def session_phase(card):
             f"each of {st['ba']['n']}), registered through the prior "
             f"{r['registered_by']['pnp_prior']}, through RANSAC "
             f"{r['registered_by']['ransac']}, graph captures "
-            f"{r['graph_captures_total']} in {r['graph_capture_s']:.2f} s, "
+            f"{r['graph_capture_s']:.2f} s, "
             f"kernel launches {n}, peak memory "
             f"{r['peak_memory_gib']:.3f} GiB, whole phase {wall:.1f} s")
         log(f"session device_loop={loop} [{card}]: BA engines "

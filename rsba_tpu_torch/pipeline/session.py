@@ -45,7 +45,6 @@ computes.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -59,6 +58,7 @@ from ..solver import lm
 from ..solver.options import SolverOptions
 from ..solver.pnp import register_frame
 from ..solver.ransac import ransac_pnp
+from ..utils import trace
 
 
 class SfmSession:
@@ -143,9 +143,15 @@ class SfmSession:
           rows: (n,) image rows for RS (default: uv[:, 1]).
 
         Returns a step-report dict (event, #matches, #new points, BA
-        summary when one ran, and ``wall_s``: seconds by stage).
+        summary when one ran, and ``wall_s``: seconds by stage, each the
+        seconds of the stage's span, ``utils/trace.py``).
         """
         track_ids = np.asarray(track_ids, np.int64)
+        with trace.span("frame", frame=self.n_frames,
+                        matches=len(track_ids)):
+            return self._add_frame(track_ids, uv, rows)
+
+    def _add_frame(self, track_ids, uv, rows) -> dict:
         uv = np.asarray(uv, np.float64)
         rows = (np.asarray(uv[:, 1], np.float64) if rows is None
                 else np.asarray(rows, np.float64))
@@ -178,21 +184,23 @@ class SfmSession:
 
         # Each stage ends in a read-back, so the host's clock around it
         # is the stage's wall time on any device.
-        t0 = time.perf_counter()
         if not self.bootstrapped:
-            report = self._try_bootstrap(f)
-            report["wall_s"] = {"bootstrap": time.perf_counter() - t0}
+            with trace.span("bootstrap") as sp:
+                report = self._try_bootstrap(f)
+            report["wall_s"] = {"bootstrap": sp.seconds}
         else:
-            report = self._register(f)
-            wall = report["wall_s"] = {"register": time.perf_counter() - t0}
+            with trace.span("register") as sp:
+                report = self._register(f)
+            wall = report["wall_s"] = {"register": sp.seconds}
             if report.get("registered"):
-                t0 = time.perf_counter()
-                report["new_points"] = self._triangulate_new()
-                wall["triangulate"] = time.perf_counter() - t0
+                with trace.span("triangulate") as sp:
+                    report["new_points"] = self._triangulate_new()
+                    sp.set(new_points=report["new_points"])
+                wall["triangulate"] = sp.seconds
                 if (f % self.ba_interval) == 0:
-                    t0 = time.perf_counter()
-                    s = self.bundle_adjust(window=self.window)
-                    wall["ba"] = time.perf_counter() - t0
+                    with trace.span("ba") as sp:
+                        s = self.bundle_adjust(window=self.window)
+                    wall["ba"] = sp.seconds
                     report["ba"] = s.brief_report()
         self.log.append(report)
         return report
@@ -204,7 +212,9 @@ class SfmSession:
         map points observed by a free frame are free.  Updates the
         session state in place and returns the solver Summary.
         """
-        problem, params0, index = self._build_problem(window)
+        with trace.span("ba.build") as sp:
+            problem, params0, index = self._build_problem(window)
+            sp.set(observations=index["observations"])
         params, summary = lm.solve(problem, params0, self.options)
         self.ba_log.append({
             "frames": self.n_frames, "window": window,
@@ -212,19 +222,20 @@ class SfmSession:
             "termination": summary.termination,
             "iterations": summary.num_iterations,
             "wall_s": summary.total_time})
-        qs = self._host(params.q)
-        cs = self._host(params.c)
-        for i, fidx in enumerate(index["frames"]):
-            self.q[fidx] = qs[i]
-            self.c[fidx] = cs[i]
-        if index.get("virtual"):
-            # the virtual end pose sits right after the real frames
-            # (shape-bucketing may append dummy poses behind it)
-            vi = len(index["frames"])
-            self.q_virtual, self.c_virtual = qs[vi], cs[vi]
-        pts = self._host(params.points)
-        for i, tid in enumerate(index["tids"]):
-            self.points[tid] = pts[i]
+        with trace.span("ba.readback"):
+            qs = self._host(params.q)
+            cs = self._host(params.c)
+            for i, fidx in enumerate(index["frames"]):
+                self.q[fidx] = qs[i]
+                self.c[fidx] = cs[i]
+            if index.get("virtual"):
+                # the virtual end pose sits right after the real frames
+                # (shape-bucketing may append dummy poses behind it)
+                vi = len(index["frames"])
+                self.q_virtual, self.c_virtual = qs[vi], cs[vi]
+            pts = self._host(params.points)
+            for i, tid in enumerate(index["tids"]):
+                self.points[tid] = pts[i]
         return summary
 
     def reconstruction(self):
@@ -389,24 +400,26 @@ class SfmSession:
         registered = False
         qb = cb = None
         if prior_ok:
-            qa, ca, qb, cb, s = register_frame(
-                pts3d, uv, rows, self.intr, reg_model, q0, c0,
-                image_height=H if rs else None,
-                loss=self.loss, options=self.register_options,
-                dtype=self.dtype, device=self.device)
+            with trace.span("register.prior"):
+                qa, ca, qb, cb, s = register_frame(
+                    pts3d, uv, rows, self.intr, reg_model, q0, c0,
+                    image_height=H if rs else None,
+                    loss=self.loss, options=self.register_options,
+                    dtype=self.dtype, device=self.device)
             if s.final_rmse_inlier <= 2.0 * self.inlier_threshold:
                 registered = True
                 method = "pnp_prior"
         if not registered:
             try:
-                qa, ca, qb, cb, _, info = ransac_pnp(
-                    pts3d, uv, self.intr, reg_model,
-                    rows=rows if rs else None,
-                    image_height=H if rs else None,
-                    inlier_threshold=self.inlier_threshold,
-                    seed=self.seed + f, loss=self.loss,
-                    options=self.register_options,
-                    dtype=self.dtype, device=self.device)
+                with trace.span("register.ransac"):
+                    qa, ca, qb, cb, _, info = ransac_pnp(
+                        pts3d, uv, self.intr, reg_model,
+                        rows=rows if rs else None,
+                        image_height=H if rs else None,
+                        inlier_threshold=self.inlier_threshold,
+                        seed=self.seed + f, loss=self.loss,
+                        options=self.register_options,
+                        dtype=self.dtype, device=self.device)
                 registered = True
                 method = "ransac"
             except ValueError:
@@ -597,4 +610,4 @@ class SfmSession:
                          intr=self._dev(self.intr[None, :]),
                          points=self._dev(pts))
         return problem, params0, {"frames": list(range(F)), "tids": tids,
-                                  "virtual": rs}
+                                  "virtual": rs, "observations": N}

@@ -26,6 +26,7 @@ import torch
 from ..geometry import quaternion as quat
 from ..kernels import fused
 from ..problem.types import POSE_DOF, Params, Problem
+from ..utils import trace
 from . import banded
 from .options import SolverOptions
 from .pcg import pcg
@@ -286,15 +287,21 @@ def solve_step(plan: WindowPlan, options: SolverOptions, aux: dict,
     the blocks of rows: the reduced system's point-side terms and the
     point terms of the predicted decrease go through it.  PCG then runs
     on the whole band, the same on every block, and back-substitution
-    stays local."""
+    stays local.
+
+    Captured with tracing on, the reduced system and PCG are device spans
+    of their own (``reduced_system``, ``pcg``); the rest of the step is
+    the back-substitution."""
     P = plan.n_poses
     F, g_cam, g_pt = aux["F"], aux["g_cam"], aux["g_pt"]
-    S, b, c6inv, lm_cam, lm_pt = reduced_system(plan, options, aux, radius,
-                                                psum)
-    dc_flat, r_cg, iters = pcg(
-        banded.make_band_matvec(S),
-        banded.make_band_preconditioner(S, options.preconditioner),
-        b.reshape(-1), options.max_cg_iterations, options.cg_eta)
+    with trace.device_span("reduced_system"):
+        S, b, c6inv, lm_cam, lm_pt = reduced_system(plan, options, aux,
+                                                    radius, psum)
+    with trace.device_span("pcg"):
+        dc_flat, r_cg, iters = pcg(
+            banded.make_band_matvec(S),
+            banded.make_band_preconditioner(S, options.preconditioner),
+            b.reshape(-1), options.max_cg_iterations, options.cg_eta)
     dc = dc_flat.reshape(P, POSE_DOF)
     # Back-substitute landmarks.
     dp = _cinv_apply(c6inv, -g_pt - et_apply_planes(F, plan.pose_windows(dc)))

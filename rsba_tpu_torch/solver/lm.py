@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..problem.types import Params, Problem
+from ..utils import trace
 from . import assembly, residuals
 from .options import SolverOptions
 from .summary import IterationSummary, Summary
@@ -47,6 +48,11 @@ def make_solver_fns(problem: Problem, options: SolverOptions) -> dict:
     apply.  ``fns["engine"]`` records the resolved (linear_solver,
     evaluator) pair, which the Summary carries.
     """
+    with trace.span("plan"):
+        return _make_solver_fns(problem, options)
+
+
+def _make_solver_fns(problem: Problem, options: SolverOptions) -> dict:
     if options.trust_region_strategy == "dogleg":
         # Dogleg needs an exact step solver; the factory validates
         # linear_solver and wraps the base engine.
@@ -56,10 +62,14 @@ def make_solver_fns(problem: Problem, options: SolverOptions) -> dict:
                          engine=(options.linear_solver, "torch-flat-dogleg"))
     if options.linear_solver in ("auto", "banded_schur"):
         from .window import build_window_plan
-        plan = build_window_plan(problem)
+        with trace.span("plan.window") as sp:
+            plan = build_window_plan(problem)
+            if plan is not None:
+                sp.set(NR=plan.NR, W=plan.W, L=plan.L, G=plan.G)
         if plan is not None:
             from .banded_fused import make_fused_solver_fns
-            return make_fused_solver_fns(problem, plan, options)
+            with trace.span("plan.engine"):
+                return make_fused_solver_fns(problem, plan, options)
         if options.linear_solver == "banded_schur":
             raise ValueError(
                 "banded_schur requires window/track structure (bounded "
@@ -145,16 +155,27 @@ def solve(problem: Problem, params: Params,
 
     With ``device_loop`` "auto" or "on" and an engine that exposes raw
     phase closures, the on-device loop runs the solve: captured in CUDA
-    graphs on a CUDA problem, eagerly on a CPU problem.  Per-phase wall
-    times are not available there (``evaluation_time`` and
-    ``linear_solver_time`` stay 0) and the evaluator tag gets
-    "+device_loop".
+    graphs on a CUDA problem, eagerly on a CPU problem, and the evaluator
+    tag gets "+device_loop".  Its phase times are device times: while a
+    profiler records (``utils/trace.py``) when the graphs are captured
+    and replayed, ``evaluation_time`` is the prepares' and residual
+    passes' device seconds and ``linear_solver_time`` the step solves';
+    otherwise, and eagerly on the CPU, both stay 0.  The host loop times
+    its phases on the host clock (each ends in a read-back).
 
     With ``matmul_precision="highest"`` TF32 is turned off for CUDA
     matmuls and cuDNN (a process-wide PyTorch setting), before anything
     is captured.
     """
-    t_start = time.perf_counter()
+    with trace.span("solve") as sp:
+        params, summary = _solve(problem, params, options, callback, fns,
+                                 summary, sp)
+    summary.total_time = sp.seconds
+    return params, summary
+
+
+def _solve(problem, params, options, callback, fns, summary, sp):
+    """``solve`` inside its span ``sp``."""
     if options.matmul_precision == "highest":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -181,7 +202,7 @@ def solve(problem: Problem, params: Params,
     sq0, n_valid, sq0_in, n_in = fns["error_stats"](params)
     summary.initial_rmse = _rmse(sq0, n_valid)
     summary.initial_rmse_inlier = _rmse(sq0_in, n_in)
-    summary.preprocessing_time = time.perf_counter() - t_start
+    summary.preprocessing_time = sp.elapsed()
 
     if options.device_loop == "on" and "raw" not in fns:
         raise ValueError(
@@ -192,7 +213,7 @@ def solve(problem: Problem, params: Params,
         summary.evaluator = engine[1] + "+device_loop"
         params = lm_device.run_blocks(fns, params, options, summary,
                                       callback, to_external)
-        return _finish(fns, params, summary, to_external, t_start)
+        return _finish(fns, params, summary, to_external)
 
     radius = options.initial_radius
     decrease_factor = 2.0
@@ -210,10 +231,11 @@ def solve(problem: Problem, params: Params,
 
     for _ in range(options.max_iterations):
         it_t0 = time.perf_counter()
-        aux = fns["prepare"](params)
-        cost = float(aux["cost"])                    # synchronises
-        gmax = float(aux["gradient_max_norm"])
-        summary.evaluation_time += time.perf_counter() - it_t0
+        with trace.span("lm.prepare") as phase:
+            aux = fns["prepare"](params)
+            cost = float(aux["cost"])                    # synchronises
+            gmax = float(aux["gradient_max_norm"])
+        summary.evaluation_time += phase.seconds
         if summary.num_iterations == 0:
             summary.initial_cost = cost
         if not math.isfinite(cost):
@@ -239,11 +261,11 @@ def solve(problem: Problem, params: Params,
         else:
             gn_norm = math.inf
         while not accepted and radius >= options.min_radius:
-            t0 = time.perf_counter()
-            dx, predicted, lin_iters = fns["solve_step"](aux, radius)
-            pred = float(predicted)
-            dx_finite = _finite(dx)
-            summary.linear_solver_time += time.perf_counter() - t0
+            with trace.span("lm.solve_step") as phase:
+                dx, predicted, lin_iters = fns["solve_step"](aux, radius)
+                pred = float(predicted)
+                dx_finite = _finite(dx)
+            summary.linear_solver_time += phase.seconds
             cand, snorm, x_norm = fns["apply_step"](params, dx)
             step_norm = float(snorm)
             # Dogleg below float64: the attempt is the full Gauss-Newton
@@ -267,7 +289,8 @@ def solve(problem: Problem, params: Params,
                 break
             invalid_steps = 0
             # Pairwise-differenced decrease (f32-safe).
-            decrease = float(fns["cost_decrease"](params, cand))
+            with trace.span("lm.cost_decrease"):
+                decrease = float(fns["cost_decrease"](params, cand))
             new_cost = cost - decrease
             rho = decrease / pred if pred > 0 else 0.0
             if (pred > 0 and math.isfinite(new_cost)
@@ -360,17 +383,17 @@ def solve(problem: Problem, params: Params,
         summary.termination = "NO_CONVERGENCE"
         summary.message = f"max iterations ({options.max_iterations}) reached"
 
-    return _finish(fns, params, summary, to_external, t_start)
+    return _finish(fns, params, summary, to_external)
 
 
-def _finish(fns, params, summary, to_external, t_start):
+def _finish(fns, params, summary, to_external):
     """Final cost and error statistics; parameters back in the caller's
     layout."""
-    summary.final_cost = float(fns["cost"](params))
-    sqf, n_valid, sqf_in, n_in = fns["error_stats"](params)
-    summary.final_rmse = _rmse(sqf, n_valid)
-    summary.final_rmse_inlier = _rmse(sqf_in, n_in)
-    if to_external is not None:
-        params = to_external(params)
-    summary.total_time = time.perf_counter() - t_start
+    with trace.span("solve.finish"):
+        summary.final_cost = float(fns["cost"](params))
+        sqf, n_valid, sqf_in, n_in = fns["error_stats"](params)
+        summary.final_rmse = _rmse(sqf, n_valid)
+        summary.final_rmse_inlier = _rmse(sqf_in, n_in)
+        if to_external is not None:
+            params = to_external(params)
     return params, summary

@@ -43,6 +43,7 @@ import time
 import torch
 
 from ..problem.types import Params
+from ..utils import trace
 from .options import SolverOptions
 from .summary import IterationSummary, Summary
 
@@ -165,12 +166,18 @@ class _Runner:
     selected where asked for; measured on the card the two forms take the
     same time (PERF.md), and this one wastes a prepare on each rejected
     step, so nothing but that measurement builds it.
+
+    Device spans (``utils/trace.py``), while tracing is on at capture
+    and at replay: ``attempt`` (the attempt's graph and the re-prepare it
+    asked for), and inside it ``solve_step`` (with the engine's own),
+    ``residual_pass`` (retraction and cost decrease) and ``prepare``.
+    Each replay's spans are read at the next read-back of ``flags`` or of
+    the block's result, which follows the replay on the stream anyway.
     """
 
-    #: graph captures made by all runners of the process (a pair of graphs
-    #: counts once) and the seconds they took, warm-up included; read by
-    #: the tools that report what a workload of many solves costs
-    captures = 0
+    #: seconds the graph captures of all runners of the process took,
+    #: warm-up included (the ``loop.capture`` spans' seconds); read by the
+    #: tools that report what a workload of many solves costs
     capture_seconds = 0.0
 
     def __init__(self, raw: dict, options: SolverOptions,
@@ -187,6 +194,12 @@ class _Runner:
         #: re-prepares, the warm-up's), so far
         self.host_reads = 0
         self.prepares = 0
+        #: the device spans' event pairs captured into each graph, the
+        #: last attempt's device record and host span while its
+        #: re-prepare's spans are unread, and device seconds by span name
+        self.spans = ([], [])
+        self._unread = None
+        self.device_seconds = {}
 
     # --- the two captured functions -------------------------------------
 
@@ -208,16 +221,20 @@ class _Runner:
         ftol, ptol = o.function_tolerance, o.parameter_tolerance
         live = s.term == TERM_RUNNING
 
-        dx, predicted, li = raw["solve_step"](bound, s.aux, s.radius)
-        cand, step_norm, x_norm = raw["apply_step"](bound, s.params, dx)
-        # Pairwise cost decrease from one residual pass on the candidate:
-        # ρ_ref (the current parameters' per-slot costs, same evaluator) is
-        # carried in the state and replaced by an accepted candidate's.
-        if self.pair:
-            decrease, rho_new = raw["cost_decrease_pair"](bound, s.rho_ref,
-                                                          cand)
-        else:
-            decrease = raw["cost_decrease"](bound, s.params, cand)
+        with trace.device_span("solve_step"):
+            dx, predicted, li = raw["solve_step"](bound, s.aux, s.radius)
+        with trace.device_span("residual_pass"):
+            cand, step_norm, x_norm = raw["apply_step"](bound, s.params,
+                                                        dx)
+            # Pairwise cost decrease from one residual pass on the
+            # candidate: ρ_ref (the current parameters' per-slot costs,
+            # same evaluator) is carried in the state and replaced by an
+            # accepted candidate's.
+            if self.pair:
+                decrease, rho_new = raw["cost_decrease_pair"](
+                    bound, s.rho_ref, cand)
+            else:
+                decrease = raw["cost_decrease"](bound, s.params, cand)
 
         valid = (_tree_finite(dx) & (predicted > 0)
                  & torch.isfinite(predicted))
@@ -286,7 +303,8 @@ class _Runner:
         """The end-of-attempt prepare, taken where ``run_prep`` is set."""
         s = self.state
         run = s.run_prep.clone()
-        aux = self.raw["prepare"](self.raw["bound"], s.params)
+        with trace.device_span("prepare"):
+            aux = self.raw["prepare"](self.raw["bound"], s.params)
         cost, gmax, term = self._prep_checks(
             aux, torch.ones((), dtype=torch.bool, device=s.cost.device))
         _select_into(run, aux, s.aux)
@@ -357,8 +375,12 @@ class _Runner:
     def _capture(self) -> None:
         """Warm both functions up on a side stream, put the state back,
         and capture them.  Whatever fails here raises."""
+        with trace.span("loop.capture") as sp:
+            self._capture_graphs()
+        _Runner.capture_seconds += sp.seconds
+
+    def _capture_graphs(self) -> None:
         from ..kernels import fused
-        t_start = time.perf_counter()
         counter = fused.fused_evaluate_assemble_cuda
         state = _leaves(self.state)
         saved = [t.clone() for t in state]
@@ -377,23 +399,28 @@ class _Runner:
         # A capture records the kernel's launch and makes none: take what
         # the wrapper counted back, and count it on every replay instead.
         before = counter.launches
+        trace.captured()              # what a failed capture may have left
         g_attempt = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g_attempt):
-            self._attempt()
-            if self.fused_prepare:
-                self._refresh()
+            with trace.device_span("attempt"):
+                self._attempt()
+                if self.fused_prepare:
+                    self._refresh()
+        spans_attempt, spans_refresh = trace.captured(), []
         in_attempt = counter.launches - before
         g_refresh, in_refresh = None, 0
         if not self.fused_prepare:
             g_refresh = torch.cuda.CUDAGraph()
             with torch.cuda.graph(g_refresh, pool=g_attempt.pool()):
-                self._refresh()
+                # timed as part of the attempt that asks for it
+                with trace.device_span("attempt"):
+                    self._refresh()
+            spans_refresh = trace.captured()
             in_refresh = counter.launches - before - in_attempt
         counter.launches = before
         self.graphs = (g_attempt, g_refresh)
+        self.spans = (spans_attempt, spans_refresh)
         self.kernel_nodes = (in_attempt, in_refresh)
-        _Runner.captures += 1
-        _Runner.capture_seconds += time.perf_counter() - t_start
 
     # --- one attempt, from the host ---------------------------------------
 
@@ -414,12 +441,27 @@ class _Runner:
         """One step attempt, and the prepare it asked for; returns the
         termination code as it stood after the attempt (a code that the
         prepare sets shows at the next call, which then changes nothing)."""
-        self._run(0)
-        self.host_reads += 1
-        term, run_prep = self.state.flags.tolist()
-        if run_prep:
-            self._run(1)
+        with trace.span("loop.attempt") as sp:
+            self._run(0)
+            self.host_reads += 1
+            term, run_prep = self.state.flags.tolist()
+            self._read_spans()
+            done = trace.resolve(self.spans[0], sp.record,
+                                 self.device_seconds)
+            if run_prep:
+                self._run(1)
+                if done:
+                    self._unread = (done[0], sp.record)
         return term
+
+    def _read_spans(self) -> None:
+        """After a read-back: the device spans of the last re-prepare,
+        whose seconds join its attempt's."""
+        if self._unread is None:
+            return
+        into, host = self._unread
+        self._unread = None
+        trace.resolve(self.spans[1], host, self.device_seconds, into=into)
 
     def result(self) -> dict:
         """The block's outcome: the record table, the entry cost and the
@@ -429,6 +471,7 @@ class _Runner:
                             torch.stack([s.n_rec, s.term]).to(s.cost.dtype),
                             s.cost0.reshape(1)]).tolist()
         self.host_reads += 1
+        self._read_spans()
         n = self.block_attempts * N_REC
         return {"params": s.params, "radius": s.radius, "df": s.df,
                 "inv": s.inv, "n_outer": s.n_outer,
@@ -479,6 +522,7 @@ def run_blocks(fns: dict, params, options: SolverOptions,
     radius, df, inv, n_outer = options.initial_radius, 2.0, 0, 0
     charge = True
     reads_before = runner.host_reads
+    runner.device_seconds = {}
     while True:
         t0 = time.perf_counter()
         runner.start(params, radius, df, inv, n_outer, charge)
@@ -495,21 +539,8 @@ def run_blocks(fns: dict, params, options: SolverOptions,
         charge = False
         term, n_rec, records = out["term"], out["n_rec"], out["records"]
 
-        # Per-record wall attribution: uniform shares of the block, or,
-        # when the caller calibrated a per-attempt cost model, each record
-        # weighted by t_fixed + t_cg·cg_iters + t_prepare·accepted and
-        # scaled so that the shares sum to the measured block wall.
-        model = fns.get("attempt_wall_model")
-        if model and n_rec > 0:
-            w = [model["t_fixed"]
-                 + model["t_cg_iter"] * float(records[i][7])
-                 + model["t_prepare"] * float(records[i][6] >= 0.5)
-                 for i in range(n_rec)]
-            tot = sum(w)
-            shares = ([block_wall * wi / tot for wi in w] if tot > 0
-                      else [block_wall / n_rec] * n_rec)
-        else:
-            shares = [block_wall / max(n_rec, 1)] * max(n_rec, 1)
+        # Each record's wall is an even share of the block's.
+        share = block_wall / max(n_rec, 1)
         cb_params = None
         for i in range(n_rec):
             cost, dcost, gmax, snorm, rho, rad, acc, li = records[i]
@@ -518,7 +549,7 @@ def run_blocks(fns: dict, params, options: SolverOptions,
                 cost_change=dcost, gradient_max_norm=gmax,
                 step_norm=snorm, relative_decrease=rho,
                 trust_region_radius=rad, accepted=bool(acc >= 0.5),
-                linear_solver_iterations=int(li), wall_time=shares[i])
+                linear_solver_iterations=int(li), wall_time=share)
             summary.iterations.append(it)
             if it.accepted:
                 summary.num_successful_steps += 1
@@ -536,5 +567,10 @@ def run_blocks(fns: dict, params, options: SolverOptions,
             summary.termination, summary.message = _TERMINATIONS[term]
             break
     summary.host_reads += runner.host_reads - reads_before
+    # Device phase times, where the graphs carry device spans (traced).
+    dev = runner.device_seconds
+    summary.evaluation_time += dev.get("prepare", 0.0) \
+        + dev.get("residual_pass", 0.0)
+    summary.linear_solver_time += dev.get("solve_step", 0.0)
     # The runner's tensors are overwritten by its next solve.
     return _tree_map(lambda t: t.clone(), params)

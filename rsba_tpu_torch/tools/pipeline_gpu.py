@@ -11,11 +11,11 @@ goes frame by frame through ``SfmSession`` (window 8, a windowed BA every
 windowed BA, then one full BA.  ``--device-loop`` sets the loop of the
 bundle adjustments and of the registrations alike (``auto`` leaves the
 registrations to the session's own defaults).  ``run_session`` returns
-the reference script's output keys and, beside them, the wall time by stage, the
-registrations by method, the engine of every BA, the CUDA-graph captures
-and kernel launches counted, and the peak device memory; the command
-prints them as one JSON object per run.  ``chip_smoke.py`` calls the same
-function at the default size.
+the reference script's output keys and, beside them, the wall time by
+stage, the registrations by method, the engine of every BA, the seconds
+of the CUDA-graph captures, the kernel launches counted, and the peak
+device memory; the command prints them as one JSON object per run.
+``chip_smoke.py`` calls the same function at the default size.
 """
 from __future__ import annotations
 
@@ -86,7 +86,6 @@ def drive_session(n_frames: int = 50, n_points: int = 1200,
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize(dev)
     launches0 = fused.fused_evaluate_assemble_cuda.launches
-    captures0 = lm_device._Runner.captures
     capture_s0 = lm_device._Runner.capture_seconds
     frame_walls = []
     t_first = time.perf_counter()
@@ -101,7 +100,6 @@ def drive_session(n_frames: int = 50, n_points: int = 1200,
             log(f"frame {f:3d}  {frame_walls[-1] * 1e3:8.1f} ms  "
                 f"{r.get('event')} {r.get('method', '')}  [{stages}]")
     total = time.perf_counter() - t_first
-    captures_ingest = lm_device._Runner.captures - captures0
     t0 = time.perf_counter()
     s = sess.bundle_adjust(window=None)
     final_ba_wall = time.perf_counter() - t0
@@ -145,8 +143,6 @@ def drive_session(n_frames: int = 50, n_points: int = 1200,
         "steady_ba_engines": sorted({b["engine"] for b in steady_bas}),
         "ba_not_banded": [b for b in bas
                           if not b["engine"].startswith("banded_schur")],
-        "graph_captures_ingest": captures_ingest,
-        "graph_captures_total": lm_device._Runner.captures - captures0,
         "graph_capture_s": lm_device._Runner.capture_seconds - capture_s0,
         "kernel_launches": launches,
         "final_ba_wall_s": final_ba_wall,

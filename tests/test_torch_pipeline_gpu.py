@@ -52,7 +52,7 @@ def test_run_session_on_the_cpu_reports_the_reference_keys():
     assert r["max_rel_rotation_err_rad"] < 5e-3
     assert r["engine"] == "banded_schur/torch+device_loop"
     assert r["ba_not_banded"] == [] and len(r["ba_engines"]) == 4
-    assert r["graph_captures_total"] == 0 and r["kernel_launches"] == 0
+    assert r["graph_capture_s"] == 0 and r["kernel_launches"] == 0
     assert r["steady_stage_ms"]["register"]["n"] == 5
     assert pipeline_gpu.main(["--frames", "6", "--points", "150", "--device",
                               "cpu", "--device-loop", "off", "--quiet"]) == 0
