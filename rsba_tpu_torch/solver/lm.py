@@ -136,6 +136,27 @@ def _flat_fns(problem: Problem, options: SolverOptions, prepare, solve_step,
     return fns
 
 
+def rebindable(problem: Problem, options: SolverOptions) -> bool:
+    """Whether the engine that ``options`` pick for ``problem`` builds
+    nothing at make time from the problem's data, only from its shapes and
+    index tensors, and runs on the device loop: then a later problem of
+    the same structure may reuse it with its own data copied in
+    (``lm_device.engines``).  These are the flat LM engines (``dense``,
+    ``dense_schur``, ``iterative_schur``, whose groupings and clusters
+    read the index tensors alone) under ``device_loop`` "auto" or "on".
+    ``auto`` picks ``iterative_schur`` from the shapes alone where they
+    rule the window layout out; elsewhere the window plan decides, and it
+    packs ``uv``, ``t`` and ``mask``.  The banded engine and the dogleg
+    never qualify."""
+    if options.trust_region_strategy != "lm" or options.device_loop == "off":
+        return False
+    if options.linear_solver == "auto":
+        from .window import shapes_admit
+        return not shapes_admit(problem)
+    return options.linear_solver in ("dense", "dense_schur",
+                                     "iterative_schur")
+
+
 def _finite(tree) -> bool:
     leaves = tree.values() if isinstance(tree, dict) else [tree]
     return all(bool(torch.isfinite(v).all()) for v in leaves)
@@ -150,8 +171,13 @@ def solve(problem: Problem, params: Params,
 
     ``callback(iteration, params, iteration_summary)`` runs after every
     accepted step.  ``fns`` overrides the phase functions (see
-    ``make_solver_fns``).  ``summary`` continues an existing Summary, so
-    that a record stream can span restarts.
+    ``make_solver_fns``).  Without it an engine that qualifies
+    (``rebindable``) comes from the process's cache
+    (``lm_device.engines``), which reuses an engine and its captured
+    graphs for every problem of the same structure; the ``solve`` span's
+    ``engine_cache`` says "hit", "miss" or "bypass" (not cached).
+    ``summary`` continues an existing Summary, so that a record stream
+    can span restarts.
 
     With ``device_loop`` "auto" or "on" and an engine that exposes raw
     phase closures, the on-device loop runs the solve: captured in CUDA
@@ -184,8 +210,16 @@ def _solve(problem, params, options, callback, fns, summary, sp):
         tol = options.gradient_check_relative_precision or (
             1e-5 if params.dtype == torch.float64 else 2e-3)
         check_gradients(problem, params, relative_precision=tol)
-    if fns is None:
+    cached = "bypass"
+    if fns is None and rebindable(problem, options):
+        from . import lm_device
+        fns, cached = lm_device.engines.fns(
+            problem, params, options,
+            lm_device.block_size(options, callback is not None),
+            make_solver_fns)
+    elif fns is None:
         fns = make_solver_fns(problem, options)
+    sp.set(engine_cache=cached)
     engine = fns.get("engine", (options.linear_solver, ""))
     if summary is None:
         summary = Summary()

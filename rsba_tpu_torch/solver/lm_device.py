@@ -16,6 +16,11 @@ and the re-prepare flag), and the record table once per block.  If the
 capture or a replay fails the solve raises: there is no other route on a
 CUDA problem.
 
+A flat engine and its runner outlive their solve (``engines``, an
+``_EngineCache``): a later ``lm.solve`` with no ``fns`` on a problem of
+the same structure copies its data into the tensors the graphs read and
+replays them, with nothing planned or captured again.
+
 Loop structure (one attempt matches the host loop's inner retry loop
 flattened):
 
@@ -37,12 +42,14 @@ Termination codes:
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import time
 
 import torch
 
-from ..problem.types import Params
+from ..problem.types import Params, Problem
 from ..utils import trace
 from .options import SolverOptions
 from .summary import IterationSummary, Summary
@@ -173,6 +180,12 @@ class _Runner:
     ``residual_pass`` (retraction and cost decrease) and ``prepare``.
     Each replay's spans are read at the next read-back of ``flags`` or of
     the block's result, which follows the replay on the stream anyway.
+
+    The two graphs share one memory pool, ``pool`` where given (the
+    runners of ``engines`` all share one).  Graphs of one pool may replay
+    in any order because no tensor allocated inside a capture outlives
+    it: both functions copy what they compute into the state, which is
+    allocated before the warm-up, outside the pool.
     """
 
     #: seconds the graph captures of all runners of the process took,
@@ -181,12 +194,15 @@ class _Runner:
     capture_seconds = 0.0
 
     def __init__(self, raw: dict, options: SolverOptions,
-                 block_attempts: int, prepare_in_attempt: bool = False):
+                 block_attempts: int, prepare_in_attempt: bool = False,
+                 pool=None):
         self.raw = raw
         self.options = options
         self.block_attempts = block_attempts
         self.pair = "cost_decrease_pair" in raw
         self.fused_prepare = prepare_in_attempt
+        #: the graph memory pool to capture into (None: a pool of its own)
+        self.pool = pool
         self.state = None
         self.graphs = None          # (attempt, refresh or None) on CUDA
         self.kernel_nodes = (0, 0)  # fused-kernel launches in each graph
@@ -384,7 +400,7 @@ class _Runner:
         counter = fused.fused_evaluate_assemble_cuda
         state = _leaves(self.state)
         saved = [t.clone() for t in state]
-        side = torch.cuda.Stream()
+        side = _warmup_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             self.state.run_prep.fill_(True)
@@ -401,7 +417,7 @@ class _Runner:
         before = counter.launches
         trace.captured()              # what a failed capture may have left
         g_attempt = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g_attempt):
+        with torch.cuda.graph(g_attempt, pool=self.pool):
             with trace.device_span("attempt"):
                 self._attempt()
                 if self.fused_prepare:
@@ -480,11 +496,129 @@ class _Runner:
                 "cost0": packed[n + 2]}
 
 
+@functools.cache
+def _warmup_stream() -> torch.cuda.Stream:
+    """The side stream of every capture's warm-up.  One for the process:
+    the first matmul on a stream allocates a cuBLAS workspace that the
+    stream keeps, so a new stream per capture would hold memory for each."""
+    return torch.cuda.Stream()
+
+
 def make_device_runner(raw: dict, options: SolverOptions,
                        block_attempts: int,
-                       prepare_in_attempt: bool = False) -> _Runner:
+                       prepare_in_attempt: bool = False,
+                       pool=None) -> _Runner:
     """The loop for one engine and one set of options (see ``_Runner``)."""
-    return _Runner(raw, options, block_attempts, prepare_in_attempt)
+    return _Runner(raw, options, block_attempts, prepare_in_attempt, pool)
+
+
+# --- engines kept across solves ----------------------------------------------
+
+#: the most engines ``engines`` keeps; the least recently used goes first
+ENGINE_CACHE_SIZE = 8
+
+#: a problem's tensors that carry data (copied into a cached engine's
+#: problem on a hit), and its index tensors (structure: equal on a hit)
+_OBS_DATA = ("uv", "t", "mask")
+_PROBLEM_DATA = ("pose_free", "point_free", "intr_free", "intr_basis")
+_OBS_INDEX = ("pose_a", "pose_b", "intr_idx", "point")
+
+
+def _data(problem: Problem) -> list:
+    return ([getattr(problem.obs, f) for f in _OBS_DATA]
+            + [getattr(problem, f) for f in _PROBLEM_DATA])
+
+
+def _indices(problem: Problem) -> list:
+    return [getattr(problem.obs, f) for f in _OBS_INDEX]
+
+
+def _clone(problem: Problem) -> Problem:
+    """A copy of ``problem`` whose tensors are its own."""
+    obs = problem.obs
+    return problem.replace(
+        obs=obs.replace(**{f: getattr(obs, f).clone()
+                           for f in _OBS_DATA + _OBS_INDEX}),
+        **{f: getattr(problem, f).clone() for f in _PROBLEM_DATA})
+
+
+@dataclasses.dataclass
+class _Engine:
+    fns: dict                 # phase functions bound to ``problem``, with
+    #                           their runner in ``fns["_device_runners"]``
+    problem: Problem          # the engine's own copy of a caller's problem
+    index: torch.Tensor       # its index tensors end to end
+
+
+class _EngineCache:
+    """Flat engines and their runners, kept for later solves of the same
+    structure, at most ``ENGINE_CACHE_SIZE`` of them.
+
+    The key holds the options and the block size, the camera model and
+    the loss, the shape, dtype and device of every tensor of the problem
+    and the parameters, and whether tracing is on (a graph captured
+    untraced holds no device spans).  A hit also needs the index tensors
+    (``pose_a``, ``pose_b``, ``intr_idx``, ``point``) equal to the entry's,
+    one comparison on the device and one read-back: what the engine built
+    from them at make time (its groupings, its shapes, its size guards)
+    then holds.  The engine's problem, a copy of the first caller's, then
+    takes the caller's data (``uv``, ``t``, ``mask``, the free masks and
+    the intrinsics basis) in place, where the captured graphs read it.
+    A miss with an equal key replaces that key's entry.
+
+    Only the engines whose make functions read nothing but shapes and
+    index tensors may enter (``lm.rebindable``); the caller decides.
+    """
+
+    def __init__(self, size: int):
+        self.size = size
+        self._entries = collections.OrderedDict()
+        self._pool = None
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def fns(self, problem: Problem, params: Params, options: SolverOptions,
+            block_attempts: int, make) -> tuple:
+        """``(fns, "hit" or "miss")`` for ``problem``; on a miss
+        ``make(problem, options)`` builds the engine on a copy of it."""
+        tensors = _data(problem) + _indices(problem) + _leaves(params)
+        key = (block_attempts, options, problem.model, problem.loss,
+               trace.enabled(),
+               tuple((tuple(t.shape), t.dtype, t.device) for t in tensors))
+        index = torch.cat([t.reshape(-1) for t in _indices(problem)])
+        entry = self._entries.pop(key, None)
+        if entry is not None and torch.equal(entry.index, index):
+            for dst, src in zip(_data(entry.problem), _data(problem)):
+                dst.copy_(src)
+            self._entries[key] = entry
+            return entry.fns, "hit"
+        own = _clone(problem)
+        fns = make(own, options)
+        fns["_device_runners"] = {(block_attempts, options):
+                                  make_device_runner(
+                                      fns["raw"], options, block_attempts,
+                                      pool=self._graph_pool(problem.device))}
+        self._entries[key] = _Engine(fns, own, index)
+        while len(self._entries) > self.size:
+            self._entries.popitem(last=False)
+        return fns, "miss"
+
+    def _graph_pool(self, device: torch.device):
+        """The memory pool every cached runner captures into (None off
+        the card)."""
+        if device.type != "cuda":
+            return None
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+
+#: the process's cache of engines (``lm.solve`` with no ``fns``)
+engines = _EngineCache(ENGINE_CACHE_SIZE)
 
 
 def block_size(options: SolverOptions, has_callback: bool) -> int:

@@ -195,6 +195,14 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def shapes_admit(problem: Problem) -> bool:
+    """Whether the window layout may fit ``problem`` by its shapes: one
+    intrinsics block, held fixed.  Where this is false no data makes
+    ``build_window_plan`` return a plan."""
+    return (problem.intr_tangent_dim == 0
+            and problem.intr_free.shape[0] == 1)
+
+
 def build_window_plan(problem: Problem, max_window: int = MAX_WINDOW,
                       nr_multiple: int = PAD_MULTIPLE
                       ) -> Optional[WindowPlan]:
@@ -204,7 +212,7 @@ def build_window_plan(problem: Problem, max_window: int = MAX_WINDOW,
     Points per row G is the 95th percentile of points per window base, so
     padding stays bounded under skew; the row count is padded to a
     multiple of ``nr_multiple`` (the sharded solver splits it evenly)."""
-    if problem.intr_tangent_dim != 0 or problem.intr_free.shape[0] != 1:
+    if not shapes_admit(problem):
         return None
     obs = problem.obs
     host = lambda a: a.detach().cpu().numpy()  # noqa: E731
