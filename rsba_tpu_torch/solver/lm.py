@@ -77,19 +77,44 @@ def _make_solver_fns(problem: Problem, options: SolverOptions) -> dict:
                 "intrinsics block); use linear_solver='auto' to fall back")
         options = dataclasses.replace(options,
                                       linear_solver="iterative_schur")
-    if options.linear_solver == "dense":
-        from .dense import make_dense_solver
-        prepare, solve_step = make_dense_solver(problem, options)
-    elif options.linear_solver == "dense_schur":
-        from .schur import make_dense_schur_solver
-        prepare, solve_step = make_dense_schur_solver(problem, options)
-    elif options.linear_solver == "iterative_schur":
-        from .pcg import make_iterative_schur_solver
-        prepare, solve_step = make_iterative_schur_solver(problem, options)
-    else:
-        raise ValueError(options.linear_solver)
+    with trace.span("plan.engine") as sp:
+        if options.linear_solver == "dense":
+            from .dense import make_dense_solver
+            prepare, solve_step = make_dense_solver(problem, options)
+        elif options.linear_solver == "dense_schur":
+            from .schur import make_dense_schur_solver
+            prepare, solve_step = make_dense_schur_solver(problem, options)
+        elif options.linear_solver == "iterative_schur":
+            from .pcg import make_iterative_schur_solver
+            prepare, solve_step = make_iterative_schur_solver(problem,
+                                                              options)
+        else:
+            raise ValueError(options.linear_solver)
+        if trace.enabled():
+            sp.set(**_flat_sizes(problem, options.linear_solver))
     return _flat_fns(problem, options, prepare, solve_step,
                      engine=(options.linear_solver, "torch-flat"))
+
+
+def _flat_sizes(problem: Problem, linear_solver: str) -> dict:
+    """What a flat engine works on, for its ``plan.engine`` span: the
+    camera tangent's size ``Dc``, the points ``M``, the distinct
+    camera–point ``pairs`` of the valid observations (a camera is a pose:
+    pose_a, and pose_b under rolling shutter), and ``e_bytes``, the bytes
+    of the dense Eᵀ (M, 3, Dc) that ``dense_schur`` holds (0 for the
+    engines that hold none)."""
+    shapes = assembly.static_shapes(problem)
+    obs = problem.obs
+    valid = obs.mask > 0
+    point = obs.point[valid].long() * shapes.n_poses
+    poses = (obs.pose_a, obs.pose_b) if problem.model.rolling_shutter \
+        else (obs.pose_a,)
+    pairs = torch.unique(torch.cat([point + p[valid].long() for p in poses]))
+    e_bytes = (shapes.n_points * 3 * shapes.cam_dim
+               * obs.uv.element_size()) if linear_solver == "dense_schur" \
+        else 0
+    return {"Dc": shapes.cam_dim, "M": shapes.n_points,
+            "pairs": int(pairs.numel()), "e_bytes": e_bytes}
 
 
 def _flat_fns(problem: Problem, options: SolverOptions, prepare, solve_step,

@@ -579,7 +579,10 @@ class _EngineCache:
         return len(self._entries)
 
     def clear(self) -> None:
+        # The graph pool dies with the last graph captured into it: a
+        # capture into its handle afterwards fails inside the allocator.
         self._entries.clear()
+        self._pool = None
 
     def fns(self, problem: Problem, params: Params, options: SolverOptions,
             block_attempts: int, make) -> tuple:

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..problem.types import POSE_DOF, Params, Problem
+from ..utils import trace
 from . import assembly, flatplan, residuals
 from .options import SolverOptions
 from .residuals import Evaluation
@@ -244,6 +245,12 @@ def make_dense_schur_solver(problem: Problem, options: SolverOptions):
     product of points and cameras; a problem whose Eᵀ and B would not fit
     the guard is refused here, not in the middle of a solve, and belongs
     to ``iterative_schur`` or the banded window solver.
+
+    Device spans (``utils/trace.py``, in a graph captured while tracing):
+    ``evaluate`` (the Jacobians, diag(J̃ᵀJ̃) and the Jacobi scaling) and
+    ``assemble`` (the gradient, B, Eᵀ and C) in ``prepare``;
+    ``reduced_system`` (the damping, C_λ⁻¹ and S) and ``factor_solve``
+    (the Cholesky, the solves and the refinement sweep) in ``solve_step``.
     """
     shapes = assembly.static_shapes(problem)
     M, Dc = shapes.n_points, shapes.cam_dim
@@ -257,20 +264,24 @@ def make_dense_schur_solver(problem: Problem, options: SolverOptions):
     plans = flatplan.build_flat_plans(problem)
 
     def prepare(params: Params):
-        ev = residuals.evaluate(params, problem)
-        d_cam, d_pt = assembly.jtj_diag(ev, problem, shapes, plans)
-        s_cam, s_pt = jacobi_scales(d_cam, d_pt, options)
-        s_pt = s_pt.reshape(-1)
-        ev = scale_evaluation(ev, problem, shapes, s_cam, s_pt)
-        g_pose, g_intr, g_pt = assembly.gradient_blocks(ev, problem, shapes,
-                                                        plans)
-        g_cam = torch.cat([g_pose.reshape(-1), g_intr.reshape(-1)])
+        # The Jacobi scales read diag(J̃ᵀJ̃), so its reduction is timed
+        # with the evaluation it scales.
+        with trace.device_span("evaluate"):
+            ev = residuals.evaluate(params, problem)
+            d_cam, d_pt = assembly.jtj_diag(ev, problem, shapes, plans)
+            s_cam, s_pt = jacobi_scales(d_cam, d_pt, options)
+            s_pt = s_pt.reshape(-1)
+            ev = scale_evaluation(ev, problem, shapes, s_cam, s_pt)
+        with trace.device_span("assemble"):
+            g_pose, g_intr, g_pt = assembly.gradient_blocks(ev, problem,
+                                                            shapes, plans)
+            g_cam = torch.cat([g_pose.reshape(-1), g_intr.reshape(-1)])
+            B = assemble_B(ev, problem, shapes, plans)
+            A = assemble_E(ev, problem, shapes, plans)
+            C = assembly.point_hessian_blocks(ev, plans)
         return {
             "cost": ev.cost, "ev": ev, "g_cam": g_cam, "g_pt": g_pt,
-            "B": assemble_B(ev, problem, shapes, plans),
-            "A": assemble_E(ev, problem, shapes, plans),
-            "C": assembly.point_hessian_blocks(ev, plans),
-            "s_cam": s_cam, "s_pt": s_pt,
+            "B": B, "A": A, "C": C, "s_cam": s_cam, "s_pt": s_pt,
             "gradient_max_norm": scaled_gradient_max(g_cam, s_cam, g_pt,
                                                      s_pt),
         }
@@ -283,18 +294,18 @@ def make_dense_schur_solver(problem: Problem, options: SolverOptions):
         B, A, C = aux["B"], aux["A"], aux["C"]
         g_cam, g_pt = aux["g_cam"], aux["g_pt"]
 
-        # LM damping in scaled space.
-        lm_cam, _ = _lm_scaled_damp(torch.diagonal(B), radius, options)
-        c_diag = torch.diagonal(C, dim1=-2, dim2=-1)            # (M, 3)
-        lm_pt, _ = _lm_scaled_damp(c_diag.reshape(-1), radius, options)
-        lm_pt = lm_pt.reshape(M, 3)
-        C_inv = invert_3x3_psd(C + torch.diag_embed(lm_pt))
+        with trace.device_span("reduced_system"):
+            # LM damping in scaled space.
+            lm_cam, _ = _lm_scaled_damp(torch.diagonal(B), radius, options)
+            c_diag = torch.diagonal(C, dim1=-2, dim2=-1)        # (M, 3)
+            lm_pt, _ = _lm_scaled_damp(c_diag.reshape(-1), radius, options)
+            lm_pt = lm_pt.reshape(M, 3)
+            C_inv = invert_3x3_psd(C + torch.diag_embed(lm_pt))
 
-        # Reduced system: S = B_λ − Σ_j A_jᵀ C_j⁻¹ A_j.
-        Y = torch.einsum("mab,mbd->mad", C_inv, A)               # (M, 3, Dc)
-        S = (B + torch.diag(lm_cam)
-             - A.reshape(M * 3, Dc).T @ Y.reshape(M * 3, Dc))
-        L, _ = torch.linalg.cholesky_ex(S, check_errors=False)
+            # Reduced system: S = B_λ − Σ_j A_jᵀ C_j⁻¹ A_j.
+            Y = torch.einsum("mab,mbd->mad", C_inv, A)           # (M, 3, Dc)
+            S = (B + torch.diag(lm_cam)
+                 - A.reshape(M * 3, Dc).T @ Y.reshape(M * 3, Dc))
 
         def schur_solve(rc, rp):
             """Solve the damped full system K·[dc; dp] = [rc; rp] via S."""
@@ -305,16 +316,18 @@ def make_dense_schur_solver(problem: Problem, options: SolverOptions):
                               rp - torch.einsum("mad,d->ma", A, dc))
             return dc, dp
 
-        dxc, dxp = schur_solve(-g_cam, -g_pt)
-        # Full-system iterative refinement against the matrix-free damped
-        # operator (J̃ᵀJ̃ + λD²): corrects both the Cholesky and the
-        # cancellation in forming S = B − E C⁻¹ Eᵀ.
-        for _ in range(options.refinement_steps):
-            Hx_cam, Hx_pt = hessian_apply(ev, dxc, dxp)
-            cc, cp = schur_solve(-g_cam - (Hx_cam + lm_cam * dxc),
-                                 -g_pt - (Hx_pt + lm_pt * dxp))
-            dxc = dxc + cc
-            dxp = dxp + cp
+        with trace.device_span("factor_solve"):
+            L, _ = torch.linalg.cholesky_ex(S, check_errors=False)
+            dxc, dxp = schur_solve(-g_cam, -g_pt)
+            # Full-system iterative refinement against the matrix-free
+            # damped operator (J̃ᵀJ̃ + λD²): corrects both the Cholesky and
+            # the cancellation in forming S = B − E C⁻¹ Eᵀ.
+            for _ in range(options.refinement_steps):
+                Hx_cam, Hx_pt = hessian_apply(ev, dxc, dxp)
+                cc, cp = schur_solve(-g_cam - (Hx_cam + lm_cam * dxc),
+                                     -g_pt - (Hx_pt + lm_pt * dxp))
+                dxc = dxc + cc
+                dxp = dxp + cp
 
         # Predicted decrease via the cancellation-free LM identity: with
         # (H + λD²)δ = −g exactly, −gᵀδ − ½δᵀHδ = ½(δᵀλD²δ − gᵀδ), a sum

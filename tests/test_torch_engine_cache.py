@@ -12,6 +12,8 @@ rsba_tpu (from the repo root):
 
     python -m pytest --noconftest -o addopts= tests/test_torch_engine_cache.py
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -238,3 +240,22 @@ def test_traced_and_untraced_solves_take_separate_entries(makes):
     assert len(lm_device.engines) == 2
     solve(ba.problem, ba.params0, opts)
     assert len(makes) == 2 and len(lm_device.engines) == 2
+
+
+@pytest.mark.gpu
+def test_a_capture_after_clear_takes_a_new_graph_pool():
+    """Once ``clear`` has dropped every kept runner, their graph pool dies
+    with them: the next solve captures into a new pool (a capture into
+    the old handle fails inside the caching allocator)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    ba = synthetic.CONFIGS["gs_small"](scale=0.1, seed=1,
+                                       dtype=torch.float32, device="cuda")
+    opts = SolverOptions(linear_solver="dense_schur", max_iterations=10)
+    for _ in range(2):
+        _, s = solve(ba.problem, ba.params0, opts)
+        assert s.evaluator == "torch-flat+device_loop"
+        assert s.num_iterations > 0 and len(lm_device.engines) == 1
+        lm_device.engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
