@@ -62,7 +62,8 @@ def _make_solver_fns(problem: Problem, options: SolverOptions) -> dict:
                          engine=(options.linear_solver, "torch-flat-dogleg"))
     if options.linear_solver in ("auto", "banded_schur"):
         from .window import build_window_plan
-        with trace.span("plan.window") as sp:
+        with trace.span("plan.window", device=str(problem.device),
+                        host_bytes=0) as sp:
             plan = build_window_plan(problem)
             if plan is not None:
                 sp.set(NR=plan.NR, W=plan.W, L=plan.L, G=plan.G)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..problem.types import Problem
+from ..utils import trace
 
 #: widest pose window the kernel takes, and build_window_plan's default
 MAX_WINDOW = 24
@@ -206,53 +207,65 @@ def shapes_admit(problem: Problem) -> bool:
 def build_window_plan(problem: Problem, max_window: int = MAX_WINDOW,
                       nr_multiple: int = PAD_MULTIPLE
                       ) -> Optional[WindowPlan]:
-    """Host-side (numpy) plan construction; the plan's tensors live on the
-    problem's device.  Returns None when the problem does not fit the
-    window layout or a track spans more than ``max_window`` poses.
-    Points per row G is the 95th percentile of points per window base, so
-    padding stays bounded under skew; the row count is padded to a
-    multiple of ``nr_multiple`` (the sharded solver splits it evenly)."""
+    """The problem's window plan, built where its tensors live.  Returns
+    None when the problem does not fit the window layout or a track spans
+    more than ``max_window`` poses.  Points per row G is the 95th
+    percentile of points per window base, so padding stays bounded under
+    skew; the row count is padded to a multiple of ``nr_multiple`` (the
+    sharded solver splits it evenly).
+
+    Every step over the observations (the check of pose_b − pose_a, the
+    stable sort by point, the per-point counts, window bases and spans,
+    the cells' points, the slots' observations and the packs) is a torch
+    op on the problem's device.  The host reads back three scalars, the
+    points of each window base (``n_poses`` integers), from which it
+    picks G and lays out the rows, and the final range check; each read
+    adds its bytes to the ``host_bytes`` of the innermost open span."""
     if not shapes_admit(problem):
         return None
     obs = problem.obs
-    host = lambda a: a.detach().cpu().numpy()  # noqa: E731
-    pose_a = host(obs.pose_a).astype(np.int64)
-    pose_b = host(obs.pose_b).astype(np.int64)
-    point = host(obs.point).astype(np.int64)
-    mask = host(obs.mask) > 0
-    d_ab = pose_b - pose_a
-    if not np.all(np.isin(d_ab[mask], (0, 1))):
-        return None
-
+    dev = problem.device
     n_points = int(problem.point_free.shape[0])
     n_poses = int(problem.pose_free.shape[0])
-
-    # Per-point observation lists (valid obs only), via one stable sort.
-    valid_idx = np.nonzero(mask)[0]
-    order = valid_idx[np.argsort(point[valid_idx], kind="stable")]
-    pts_sorted = point[order]
-    counts = np.bincount(pts_sorted, minlength=n_points)
-    if counts.size == 0 or counts.max() == 0:
+    n_flat = obs.n_obs
+    if n_points == 0 or n_flat == 0:
         return None
-    L = int(counts.max())
-    offsets = np.cumsum(counts) - counts
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    # Per-point observation lists (valid obs only), via one stable sort:
+    # invalid observations take the key n_points and sort last.
+    valid = obs.mask > 0
+    pose_a = obs.pose_a.long()
+    pose_b = obs.pose_b.long()
+    d_ab = pose_b - pose_a
+    key = torch.where(valid, obs.point.long(), n_points)
+    key_sorted, order = torch.sort(key, stable=True)
+    bounds = torch.searchsorted(key_sorted,
+                                torch.arange(n_points + 1, **i64))
+    offsets = bounds[:-1]
+    counts = bounds[1:] - offsets
 
     # Window base and span per point (over both pose_a and pose_b).
-    lo = np.full(n_points, np.iinfo(np.int32).max, dtype=np.int64)
-    hi = np.full(n_points, -1, dtype=np.int64)
-    np.minimum.at(lo, pts_sorted, pose_a[order])
-    np.maximum.at(hi, pts_sorted, pose_b[order])
+    lo = torch.full((n_points + 1,), np.iinfo(np.int32).max, **i64
+                    ).scatter_reduce_(0, key, pose_a, "amin")[:n_points]
+    hi = torch.full((n_points + 1,), -1, **i64
+                    ).scatter_reduce_(0, key, pose_b, "amax")[:n_points]
     has_obs = counts > 0
-    lo[~has_obs] = 0
-    hi[~has_obs] = 0
-    W = int((hi - lo + 1)[has_obs].max())
-    if W > max_window:
+    base = torch.where(has_obs, lo, 0)
+    span = torch.where(has_obs, hi - lo + 1, 0)
+    bad_ab = (valid & (d_ab != 0) & (d_ab != 1)).any()
+    bad_ab, L, W = _read(torch.stack([bad_ab.long(), counts.max(),
+                                      span.max()])).tolist()
+    if bad_ab or L == 0 or W > max_window:
         return None
-    base = lo
+    del key, key_sorted, bounds, lo, hi, has_obs, span, valid, pose_b
 
     # Rows: group points by base, splitting heavy bases into chunks of G.
-    porder = np.argsort(base, kind="stable")
-    b_counts = np.bincount(base, minlength=int(base.max()) + 1)
+    base_sorted, porder = torch.sort(base, stable=True)
+    b_bounds = torch.searchsorted(base_sorted, torch.arange(n_poses + 1,
+                                                            **i64))
+    b_counts = _read(b_bounds[1:] - b_bounds[:-1])
+    del base, base_sorted, b_bounds
     pos_counts = b_counts[b_counts > 0]
     g_target = int(np.percentile(pos_counts, 95))
     G = _round_up(max(min(g_target, int(pos_counts.max())), 1), PAD_MULTIPLE)
@@ -271,43 +284,48 @@ def build_window_plan(problem: Problem, max_window: int = MAX_WINDOW,
     row_base = np.zeros(NR, dtype=np.int64)
     row_base[:NR0] = row_base0
 
-    cols = np.arange(G)
-    cell_valid = cols[None, :] < row_len[:, None]
-    src = row_of_chunk[:, None] + cols[None, :]
-    point_id = np.full((NR, G), n_points, dtype=np.int64)
-    point_id[:NR0][cell_valid] = porder[src[cell_valid]]
+    as_i = lambda a: torch.as_tensor(a, **i64)  # noqa: E731
+    cols = torch.arange(G, **i64)
+    src = (as_i(row_of_chunk)[:, None] + cols).clamp_(max=n_points - 1)
+    point_id = torch.full((NR, G), n_points, **i64)
+    point_id[:NR0] = torch.where(cols < as_i(row_len)[:, None],
+                                 porder[src], n_points)
+    del porder, src
 
     # Per-slot flat obs index (sentinel = len(obs) → zero row).
-    n_flat = pose_a.shape[0]
-    obs_sel = np.full((NR * G, L), n_flat, dtype=np.int64)
-    pid_flat = point_id.reshape(-1)
-    rows = np.nonzero(pid_flat < n_points)[0]
-    pj = pid_flat[rows]
-    slot_valid = np.arange(L)[None, :] < counts[pj][:, None]
-    slot_src = offsets[pj][:, None] + np.arange(L)[None, :]
-    obs_sel[rows[:, None], np.broadcast_to(np.arange(L), slot_valid.shape)
-            ] = np.where(slot_valid,
-                         order[np.minimum(slot_src, order.size - 1)], n_flat)
-    obs_sel = obs_sel.reshape(NR, G, L)
+    pid = point_id.reshape(-1)
+    zero = counts.new_zeros(1)
+    slots = torch.arange(L, **i64)
+    slot_src = (torch.cat([offsets, zero])[pid][:, None] + slots
+                ).clamp_(max=n_flat - 1)
+    obs_sel = torch.where(slots < torch.cat([counts, zero])[pid][:, None],
+                          order[slot_src], n_flat).reshape(NR, G, L)
+    del offsets, counts, order, slot_src
 
-    def pack(a, fill=0.0):
-        ext = np.concatenate(
-            [a, np.full((1,) + a.shape[1:], fill, dtype=a.dtype)])
-        return ext[obs_sel]
+    def pack(a):
+        return torch.cat([a, a.new_zeros((1,) + tuple(a.shape[1:]))]
+                         )[obs_sel]
 
-    uv_h = host(obs.uv)
-    pa = pack(pose_a, fill=0)
-    dab = pack(d_ab, fill=0)
-    offs_a = np.where(obs_sel < n_flat, pa - row_base[:, None, None], 0)
-    if offs_a.min() < 0 or (offs_a + dab).max() >= W:
+    row_base_d = as_i(row_base)
+    filled = obs_sel < n_flat
+    dab = pack(d_ab)
+    offs_a = torch.where(filled, pack(pose_a) - row_base_d[:, None, None],
+                         0)
+    if _read((offs_a.min() < 0) | ((offs_a + dab).max() >= W)).item():
         return None
 
-    dev, dt = problem.device, obs.uv.dtype
-    as_f = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
-    as_i = lambda a: torch.as_tensor(a, dtype=torch.int64,  # noqa: E731
-                                     device=dev)
+    dt = obs.uv.dtype
+    fold_idx, heavy_pose, heavy_idx = (
+        as_i(t) for t in _fold_tables(row_base, W, n_poses))
     return WindowPlan(
         NR=NR, G=G, L=L, W=W, n_poses=n_poses, n_points=n_points,
-        row_base=as_i(row_base), uv=as_f(pack(uv_h)),
-        t=as_f(pack(host(obs.t))), mask=as_f(pack(mask.astype(uv_h.dtype))),
-        offs_a=as_i(offs_a), rs_ab=as_f(dab), point_id=as_i(point_id))
+        row_base=row_base_d, uv=pack(obs.uv), t=pack(obs.t.to(dt)),
+        mask=filled.to(dt), offs_a=offs_a, rs_ab=dab.to(dt),
+        point_id=point_id, fold_idx=fold_idx, heavy_pose=heavy_pose,
+        heavy_idx=heavy_idx)
+
+
+def _read(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a host array, its bytes counted under ``host_bytes``."""
+    trace.add(host_bytes=x.numel() * x.element_size())
+    return x.cpu().numpy()

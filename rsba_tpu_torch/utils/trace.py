@@ -15,7 +15,8 @@ on the profiler's timeline beside the device's operations, and keeps a
 record in memory: its name, its start and end from ``time.time_ns()``
 (the profiler's clock), its id, its parent's id, the id of its root span
 as the request id, and ``attrs``.  Counts are ``attrs`` of the span at
-their boundary, or the number of spans of a name.
+their boundary, counters that ``add(**amounts)`` grows in the innermost
+open span, or the number of spans of a name.
 
 ``device_span(name)`` times a stretch of device work inside a CUDA graph.
 Only while a graph is being captured with tracing on, it records a pair
@@ -184,6 +185,16 @@ def resolve(pairs: list, parent, totals: dict = None,
         if totals is not None:
             totals[name] = totals.get(name, 0.0) + seconds
     return out
+
+
+def add(**amounts) -> None:
+    """Add ``amounts`` to the attributes of the innermost open host span,
+    counters that grow inside it (an attribute not yet set starts at 0);
+    nothing while no span records."""
+    if _local.stack:
+        attrs = _local.stack[-1]["attrs"]
+        for k, v in amounts.items():
+            attrs[k] = attrs.get(k, 0) + v
 
 
 def records() -> list:

@@ -20,8 +20,9 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
 from rsba_tpu_torch import SfmSession
-from rsba_tpu_torch.problem import synthetic
-from rsba_tpu_torch.solver import SolverOptions, lm_device, solve
+from rsba_tpu_torch.geometry import Loss
+from rsba_tpu_torch.problem import synthetic, types
+from rsba_tpu_torch.solver import SolverOptions, lm, lm_device, solve, window
 from rsba_tpu_torch.tools import pipeline_gpu
 from rsba_tpu_torch.utils import trace
 
@@ -177,7 +178,8 @@ def test_a_solve_leaves_the_spans_of_each_layer(traced_solves):
     assert ids[[r for r in recs if r["name"] == "plan.window"][0]["parent"]][
         "name"] == "plan"
     window, = [r for r in recs if r["name"] == "plan.window"]
-    assert set(window["attrs"]) == {"NR", "W", "L", "G"}
+    assert set(window["attrs"]) == {"NR", "W", "L", "G", "host_bytes",
+                                    "device"}
 
     s, recs, _ = traced_solves["auto"]
     names = _names(recs)
@@ -230,6 +232,49 @@ def test_a_session_leaves_the_spans_of_each_stage(traced_session):
         if r["name"] == "triangulate":
             assert r["attrs"]["new_points"] == reports[f]["new_points"]
     assert sum(len(rep["wall_s"]) for rep in reports) == len(stages)
+
+
+def _config4_shaped(n_points, device="cpu"):
+    """Config 4's generator (rolling shutter, SLERP, distortion, tracks of
+    10, Huber, 5% outliers) at 21 poses."""
+    return synthetic.make_ba_problem(
+        n_poses=21, n_points=n_points, track_len=10, rolling_shutter=True,
+        rotation_interp="slerp", use_distortion=True,
+        loss=Loss("huber", 4.0), outlier_fraction=0.05, pixel_noise=0.5,
+        seed=1, dtype=torch.float64, device=device)
+
+
+def test_window_plan_reads_back_bytes_of_poses_not_observations():
+    """``plan.window``'s ``host_bytes``: a few scalars and a count per
+    pose, the same for twice the points."""
+    read = []
+    for n_points in (400, 800):
+        problem = _config4_shaped(n_points).problem
+        trace.clear()
+        with _cpu_profile():
+            lm.make_solver_fns(problem, SolverOptions())
+        rec, = [r for r in trace.records() if r["name"] == "plan.window"]
+        trace.clear()
+        n_poses = problem.pose_free.shape[0]
+        assert rec["attrs"]["device"] == "cpu"
+        # the points of each window base, int64, and a few scalars
+        assert 8 * n_poses < rec["attrs"]["host_bytes"] <= 8 * (n_poses + 64)
+        read.append(rec["attrs"]["host_bytes"])
+    assert read[0] == read[1]
+
+
+def test_add_grows_the_innermost_open_span(counted):
+    trace.add(n=1)                  # tracing off: nothing to grow
+    trace.clear()
+    with _cpu_profile():
+        with trace.span("a", n=1):
+            trace.add(n=2)
+            with trace.span("b"):
+                trace.add(n=3, m=1)
+                trace.add(n=4)
+    assert [r["attrs"] for r in trace.records()] == [{"n": 3},
+                                                     {"n": 7, "m": 1}]
+    trace.clear()
 
 
 # --- on the card ---------------------------------------------------------
@@ -319,3 +364,28 @@ def test_graph_captured_with_tracing_off_holds_no_event_node(monkeypatch,
     assert counts[False] == 0
     assert counts[True] > 0
     assert lm_device._Runner.capture_seconds > 0
+
+
+@pytest.mark.gpu
+def test_window_plan_on_the_card_equals_the_plan_on_the_cpu():
+    """Config 4 at full size: the plan built from the problem on the card
+    equals, field by field, the plan built from it on the CPU, and reads
+    back under 64 KB."""
+    _need_card()
+    problem = synthetic.CONFIGS["rs_slerp_robust"](
+        seed=1, dtype=torch.float32, device="cuda").problem
+    want = window.build_window_plan(types.problem_from_numpy(
+        problem, device="cpu", dtype=torch.float32))
+    trace.clear()
+    with _cpu_profile():
+        with trace.span("plan.window", host_bytes=0) as sp:
+            got = window.build_window_plan(problem)
+        torch.cuda.synchronize()
+    trace.clear()
+    assert 0 < sp.record["attrs"]["host_bytes"] < 64 * 1024
+    for f in ("NR", "G", "L", "W", "n_poses", "n_points"):
+        assert getattr(got, f) == getattr(want, f), f
+    for f in window._ROW_FIELDS + window._FOLD_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.device.type == "cuda" and g.dtype == w.dtype, f
+        assert torch.equal(g.cpu(), w), f
