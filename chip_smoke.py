@@ -18,13 +18,19 @@ Phases, each raising on failure (exit code 1):
    then config 4's shapes in float32 (each output within 1e-4·max|ref|,
    summation order over ~L·G terms), two launches on the same inputs
    giving equal bits, the kernel's bound from the shapes, and the
-   kernel's and the plain version's times;
+   kernel's and the plain version's times; then the band PCG kernel
+   (``csrc/band_pcg.cu``) against its plain version on config 4's first
+   reduced system (float64 at 1e-9 with equal passes, float32 with passes
+   within 3%), equal bits from two launches, and its time in a CUDA graph
+   against its bound and the plain version's;
 3. config 4 (rs_slerp_robust, 1,001 poses, 100k points) at full size in
    float32 through ``rsba_tpu_torch.solver.solve`` with the default
    options, which is the on-device loop replayed from CUDA graphs: the
    engine must be banded_schur/cuda+device_loop, every prepare must
-   launch the kernel (a graph replay counts the launches it holds), the
-   host must read back no more than one tensor per attempt and block,
+   launch the kernel (a graph replay counts the launches it holds), every
+   step attempt must launch the band PCG kernel once (and a capture's
+   warm-up once), the host must read back no more than one tensor per
+   attempt and block,
    and the solve must converge to within 0.002 px of the float64
    inlier-RMSE anchor; a second solve on the same graphs must take the
    same accept/reject sequence; then the same problem through the host
@@ -120,6 +126,7 @@ DOGLEG_MAX_ATTEMPTS = 12      # float64 takes 3 to 4 on config 1
 N_OBS_CONFIG4 = 910092        # benchmarks/SCALING.json, float64 generator
 KERNEL_SOURCE = "rsba_tpu_torch/csrc/fused_evaluate_assemble.cu"
 KERNEL_REPLACES = "rsba_tpu/kernels/fused.py:469"
+BAND_PCG_SOURCE = "rsba_tpu_torch/csrc/band_pcg.cu"
 PIXEL_NOISE = 0.5             # of every synthetic sequence here
 
 
@@ -345,15 +352,144 @@ def time_prepares(ba, n_kernel=20, n_plain=3):
     return t
 
 
+def spd_band(P, W, seed, dtype, device, shift=0.05):
+    """The upper band (P, W, 6, 6) of S = GᵀG + shift·I for a random block
+    upper band G of W blocks a row (entries N(0, 1/(6W))), built from
+    ``seed``: symmetric positive definite, its smallest eigenvalue at
+    least ``shift``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    G = torch.from_numpy(rng.standard_normal((P, W, 6, 6))
+                         / np.sqrt(6.0 * W)).to(torch.float64)
+    pose = torch.arange(P)[:, None] + torch.arange(W)[None, :]
+    G = G * (pose < P).to(G.dtype)[:, :, None, None]
+    S = torch.zeros((P, W, 6, 6), dtype=torch.float64)
+    for d in range(W):
+        for e in range(min(W - d, P)):   # S[p, p+d] += G[p-e, e]ᵀ G[p-e, e+d]
+            S[e:, d] += G[:P - e, e].transpose(-1, -2) @ G[:P - e, e + d]
+    S[:, 0] += shift * torch.eye(6, dtype=torch.float64)
+    return S.to(dtype=dtype, device=device)
+
+
+def band_inputs(S):
+    """(rows, nbr, Minv) of a band, as ``banded_fused.solve_step`` hands
+    them to ``band_pcg``."""
+    from rsba_tpu_torch.solver import banded
+    from rsba_tpu_torch.solver.schur import invert_6x6_psd
+    rows, nbr = banded.band_rows(S)
+    return rows, nbr, invert_6x6_psd(S[:, 0])
+
+
+def band_system(ba, radius=1e4):
+    """The damped reduced band S_λ and right-hand side b of the problem's
+    first step at ``radius``, as ``banded_fused.solve_step`` forms them."""
+    from rsba_tpu_torch.kernels import fused
+    from rsba_tpu_torch.solver import SolverOptions, banded_fused
+    plan, statics, params, _ = kernel_inputs(ba)
+    opts = SolverOptions()
+    aux = banded_fused.prepare(plan, ba.problem, opts, params,
+                               fused.fused_evaluate_assemble, statics)
+    S, b = banded_fused.reduced_system(plan, opts, aux, radius)[:2]
+    return S, b.reshape(-1)
+
+
+def graph_ms(f, n):
+    """Device ms of one call of ``f``, captured once in a CUDA graph and
+    replayed ``n`` times between two events (a warm-up call first)."""
+    import torch
+    f()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        f()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def band_pcg_phase(ba4, card):
+    """The band PCG kernel against its plain version on config 4's first
+    step (radius 1e4): float64 at 1e-9 with equal passes, float32 with
+    passes within 3% and x within 1e-2 of max|x|, equal bits from two
+    launches; then its time, in a CUDA graph as the loop runs it, against
+    its bound and the plain version's (turns plain, kernel, kernel,
+    plain)."""
+    import torch
+    from rsba_tpu_torch.kernels import band_pcg
+    from rsba_tpu_torch.utils.roofline import band_pcg_bound
+    S, b = band_system(ba4)
+    P, W = S.shape[0], S.shape[1]
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        inp = band_inputs(S.to(dtype))
+        bd = b.to(dtype)
+        ref = band_pcg.band_pcg_reference(*inp, bd, 100, 1e-2)
+        out = band_pcg.band_pcg_cuda(*inp, bd, 100, 1e-2)
+        again = band_pcg.band_pcg_cuda(*inp, bd, 100, 1e-2)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, a) for o, a in zip(out, again)):
+            raise AssertionError(f"band PCG: two launches differ ({dtype})")
+        k, kr = int(out[2]), int(ref[2])
+        dx = float((out[0] - ref[0]).abs().max() / ref[0].abs().max())
+        dr = float((out[1] - ref[1]).abs().max() / bd.abs().max())
+        rel = float(out[1].norm() / bd.norm())
+        log(f"band PCG vs plain at config-4 shapes ({str(dtype)[6:]}, P={P} "
+            f"W={W}): passes {k} / {kr}, max|dx|/max|x| {dx:.3e}, "
+            f"max|dr|/max|b| {dr:.3e}, |r|/|b| {rel:.4e}; two launches "
+            f"torch.equal")
+        ok = (k == kr and dx <= 1e-9 and dr <= 1e-9
+              if dtype == torch.float64
+              else abs(k - kr) <= 0.03 * kr + 1 and dx <= 1e-2)
+        if not ok:
+            raise AssertionError(f"band PCG differs from its plain version "
+                                 f"({dtype})")
+        runs[dtype] = (inp, bd, k)
+    inp, bd, k = runs[torch.float32]
+    kernel = lambda: band_pcg.band_pcg_cuda(*inp, bd, 100, 1e-2)  # noqa
+    plain = lambda: band_pcg.band_pcg_reference(*inp, bd, 100, 1e-2)  # noqa
+    p1, k1, k2, p2 = (graph_ms(plain, 20), graph_ms(kernel, 200),
+                      graph_ms(kernel, 200), graph_ms(plain, 20))
+    ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+    bound = band_pcg_bound(P, W, 4, k)
+    log(f"band PCG time at config-4 shapes (float32, {k} live passes, "
+        f"CUDA graph): kernel {k1:.4f} / {k2:.4f} ms, plain version "
+        f"{p1:.3f} / {p2:.3f} ms; bound {bound['bytes_per_pass']} B a pass "
+        f"at 3.35e12 B/s = {bound['bound_ms']:.4f} ms; kernel "
+        f"{ms / bound['bound_ms']:.1f}x its bound [{card}]")
+    # A pass's time: 1 and 100 passes forced (eta = 0), as a solve's
+    # attempts near the optimum make 100.
+    one, hundred = (graph_ms(lambda: band_pcg.band_pcg_cuda(
+        *inp, bd, n, 0.0), 200) for n in (1, 100))
+    per_pass = (hundred - one) / 99
+    bound100 = band_pcg_bound(P, W, 4, 100)
+    log(f"band PCG forced passes: 1 pass {1e3 * one:.1f} us, 100 passes "
+        f"{hundred:.4f} ms: {1e3 * per_pass:.2f} us a pass against "
+        f"{1e3 * bound100['bound_ms'] / 100:.2f} us by bytes "
+        f"({hundred / bound100['bound_ms']:.1f}x the bound of 100 passes)")
+    plan = band_pcg._PLANS[(P, W, torch.float32, bd.device)]
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+            "live_passes": k, "ms_100_passes": hundred,
+            "us_per_pass": 1e3 * per_pass, "plan": plan.__dict__}
+
+
 def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
     """Full-size float32 solve through the port's public entry point,
     held to its engine, its termination and its RMSE anchor.  Returns a
     dict with the problem, the phase functions, the Summary, the kernel
     launches and the wall time."""
     import torch
-    from rsba_tpu_torch.kernels import fused
+    from rsba_tpu_torch.kernels import band_pcg, fused
     from rsba_tpu_torch.problem import synthetic
-    from rsba_tpu_torch.solver import SolverOptions, make_solver_fns, solve
+    from rsba_tpu_torch.solver import (SolverOptions, lm_device,
+                                       make_solver_fns, solve)
 
     opts = SolverOptions(max_iterations=60, **option_kw)
     if ba is None:
@@ -372,30 +508,50 @@ def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
             f"{time.perf_counter() - t0:.2f} s")
     looped = opts.device_loop != "off" and "raw" in fns
     banded = fns["engine"][0] == "banded_schur"
-    prepares = [0]
+    prepares, attempts = [0], [0]
+    runners = lambda: fns.get("_device_runners", {}).values()  # noqa: E731
     if looped:
         # The loop's runner counts its own prepares (block entries,
         # re-prepares and the warm-up before a capture).
         count_prepares = lambda: sum(  # noqa: E731
-            r.prepares for r in fns.get("_device_runners", {}).values())
+            r.prepares for r in runners())
     else:
-        inner = fns["prepare"]
+        inner, inner_step = fns["prepare"], fns["solve_step"]
 
         def counted_prepare(p):
             prepares[0] += 1
             return inner(p)
 
-        fns = dict(fns, prepare=counted_prepare)
+        def counted_step(aux, radius):
+            attempts[0] += 1
+            return inner_step(aux, radius)
+
+        fns = dict(fns, prepare=counted_prepare, solve_step=counted_step)
         count_prepares = lambda: prepares[0]  # noqa: E731
+    real_attempt = lm_device._Runner.attempt
+
+    def counted_attempt(runner):
+        attempts[0] += 1
+        return real_attempt(runner)
+
     before = count_prepares()
+    captured = sum(r.graphs is not None for r in runners())
     torch.cuda.reset_peak_memory_stats()
     fused.fused_evaluate_assemble_cuda.launches = 0
+    band_pcg.band_pcg_cuda.launches = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params, s = solve(ba.problem, ba.params0, opts, fns=fns)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    lm_device._Runner.attempt = counted_attempt
+    try:
+        t0 = time.perf_counter()
+        params, s = solve(ba.problem, ba.params0, opts, fns=fns)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        lm_device._Runner.attempt = real_attempt
     launches = fused.fused_evaluate_assemble_cuda.launches
+    pcg_launches = band_pcg.band_pcg_cuda.launches
+    # a capture's warm-up runs one attempt eagerly, outside ``attempt``
+    warmups = sum(r.graphs is not None for r in runners()) - captured
     n_prep = count_prepares() - before
     mem = torch.cuda.max_memory_allocated()
     seq = "".join("A" if it.accepted else "r" for it in s.iterations)
@@ -403,7 +559,8 @@ def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
     log(f"{name} {tag} [{card}]: engine {s.linear_solver}/{s.evaluator}, "
         f"{s.termination} ({s.message}), valid attempts {s.num_iterations} "
         f"({s.num_successful_steps} accepted) {seq}, CG iterations {cg}, "
-        f"prepares {n_prep}, kernel launches {launches}, host read-backs "
+        f"prepares {n_prep}, kernel launches {launches}, step attempts "
+        f"{attempts[0]}, band PCG launches {pcg_launches}, host read-backs "
         f"{s.host_reads}")
     log(f"{name} {tag} [{card}]: cost {s.initial_cost:.6e} -> "
         f"{s.final_cost:.6e}, inlier RMSE {s.final_rmse_inlier:.5f} px "
@@ -421,6 +578,13 @@ def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
     if banded and not (launches > 0 and launches == n_prep):
         raise AssertionError(f"{name} {tag}: {launches} kernel launches for "
                              f"{n_prep} prepares")
+    # Block-Jacobi PCG on the band is one band PCG launch an attempt.
+    block_jacobi = banded and opts.preconditioner != "cluster_jacobi"
+    want_pcg = attempts[0] + warmups if block_jacobi else 0
+    if pcg_launches != want_pcg or (block_jacobi and want_pcg == 0):
+        raise AssertionError(f"{name} {tag}: {pcg_launches} band PCG "
+                             f"launches, want {want_pcg} ({attempts[0]} "
+                             f"attempts, {warmups} capture warm-ups)")
     if looped:
         blocks = 1
         # One tensor per attempt (invalid attempts leave no record, and one
@@ -444,7 +608,8 @@ def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
         if tuple(x.shape) != tuple(getattr(ba.params0, f).shape):
             raise AssertionError(f"{name} {tag}: {f} shape {x.shape}")
     return {"ba": ba, "fns": fns, "summary": s, "params": params,
-            "launches": launches,
+            "launches": launches, "pcg_launches": pcg_launches,
+            "attempts": attempts[0],
             "wall": wall, "seq": seq, "cg": cg,
             "n_obs": int(ba.problem.obs.mask.sum())}
 
@@ -1103,14 +1268,15 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, triton {triton_ver}, device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(f"nvcc {nvcc}: {nvcc_ver.splitlines()[-1]}")
-    t0 = time.perf_counter()
-    lib = build.load("fused_evaluate_assemble")
-    log(f"kernel build {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path.name}")
-    for line in lib.build_log.splitlines():
-        if "Compiling entry" in line or "registers" in line \
-                or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for source in ("fused_evaluate_assemble", "band_pcg"):
+        t0 = time.perf_counter()
+        lib = build.load(source)
+        log(f"kernel build {time.perf_counter() - t0:.2f} s "
+            f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path.name}")
+        for line in lib.build_log.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
     # --- 2. kernel vs plain version ---------------------------------------
     for name, kw in fixtures().items():
@@ -1148,6 +1314,7 @@ def main() -> int:
     times = time_prepares(ba4)
     log(f"kernel {times['kernel']:.3f} ms is "
         f"{times['kernel'] / bound['bound_ms']:.1f}x its bound")
+    pcg_times = band_pcg_phase(ba4, card)
     del ba4
     torch.cuda.empty_cache()
 
@@ -1172,7 +1339,19 @@ def main() -> int:
         f"({first['wall']:.3f} s with warm-up and capture) against host "
         f"loop {host['wall']:.3f} s; sequences {again['seq']} / "
         f"{host['seq']}; CG iterations {again['cg']} / {host['cg']}")
+    if not again["pcg_launches"] == again["attempts"] > 0:
+        raise AssertionError("the second looped config-4 solve: "
+                             f"{again['pcg_launches']} band PCG launches "
+                             f"for {again['attempts']} step attempts")
+    log(f"rs_slerp_robust [{card}]: band PCG launches per step attempt: "
+        f"{again['pcg_launches']} for {again['attempts']} (captured loop "
+        f"#2), {first['pcg_launches']} for {first['attempts']} + 1 "
+        f"capture warm-up (#1), {host['pcg_launches']} for "
+        f"{host['attempts']} (host loop)  OK")
     launches, launches_host = again["launches"], host["launches"]
+    pcg_launches = {"captured_loop": again["pcg_launches"],
+                    "attempts": again["attempts"],
+                    "host_loop": host["pcg_launches"]}
     host_seq = host["seq"]
     del first, again, host
     torch.cuda.empty_cache()
@@ -1235,7 +1414,15 @@ def main() -> int:
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
         "prepare_ms": times["prepare_kernel"],
-        "plain_prepare_ms": times["prepare_plain"]}]}))
+        "plain_prepare_ms": times["prepare_plain"]}, {
+        "name": "band_pcg", "route": "cuda", "source": BAND_PCG_SOURCE,
+        "replaces": None, "launches_config4": pcg_launches,
+        "ms": pcg_times["ms"], "plain_ms": pcg_times["plain_ms"],
+        "bound_ms": pcg_times["bound_ms"], "bound_by": "bytes",
+        "live_passes": pcg_times["live_passes"],
+        "ms_100_passes": pcg_times["ms_100_passes"],
+        "us_per_pass": pcg_times["us_per_pass"],
+        "plan": pcg_times["plan"], "library_ms": None}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

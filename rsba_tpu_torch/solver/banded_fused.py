@@ -24,13 +24,13 @@ import dataclasses
 import torch
 
 from ..geometry import quaternion as quat
-from ..kernels import fused
+from ..kernels import band_pcg, fused
 from ..problem.types import POSE_DOF, Params, Problem
 from ..utils import trace
 from . import banded
 from .options import SolverOptions
 from .pcg import pcg
-from .schur import _lm_scaled_damp, jacobi_scales
+from .schur import _lm_scaled_damp, invert_6x6_psd, jacobi_scales
 from .window import WindowPlan
 
 C6_DIAG = fused.C6_DIAG
@@ -289,6 +289,11 @@ def solve_step(plan: WindowPlan, options: SolverOptions, aux: dict,
     on the whole band, the same on every block, and back-substitution
     stays local.
 
+    PCG with the block-Jacobi preconditioner (``schur_jacobi``, the
+    default, or ``jacobi``) is ``kernels/band_pcg.py``: one kernel launch
+    on CUDA tensors, its plain version on CPU tensors; ``cluster_jacobi``
+    runs the generic ``pcg``.
+
     Captured with tracing on, the reduced system and PCG are device spans
     of their own (``reduced_system``, ``pcg``); the rest of the step is
     the back-substitution."""
@@ -298,10 +303,16 @@ def solve_step(plan: WindowPlan, options: SolverOptions, aux: dict,
         S, b, c6inv, lm_cam, lm_pt = reduced_system(plan, options, aux,
                                                     radius, psum)
     with trace.device_span("pcg"):
-        dc_flat, r_cg, iters = pcg(
-            banded.make_band_matvec(S),
-            banded.make_band_preconditioner(S, options.preconditioner),
-            b.reshape(-1), options.max_cg_iterations, options.cg_eta)
+        if options.preconditioner == "cluster_jacobi":
+            dc_flat, r_cg, iters = pcg(
+                banded.make_band_matvec(S),
+                banded.make_band_preconditioner(S, options.preconditioner),
+                b.reshape(-1), options.max_cg_iterations, options.cg_eta)
+        else:   # block Jacobi: the whole PCG in one kernel on the card
+            rows, nbr = banded.band_rows(S)
+            dc_flat, r_cg, iters = band_pcg.band_pcg(
+                rows, nbr, invert_6x6_psd(S[:, 0]), b.reshape(-1),
+                options.max_cg_iterations, options.cg_eta)
     dc = dc_flat.reshape(P, POSE_DOF)
     # Back-substitute landmarks.
     dp = _cinv_apply(c6inv, -g_pt - et_apply_planes(F, plan.pose_windows(dc)))

@@ -152,6 +152,13 @@ def _tree_finite(tree) -> torch.Tensor:
     return ok
 
 
+def _kernel_counters() -> tuple:
+    """The wrappers of the package's CUDA kernels, whose ``launches`` a
+    graph replay adds to."""
+    from ..kernels import band_pcg, fused
+    return (fused.fused_evaluate_assemble_cuda, band_pcg.band_pcg_cuda)
+
+
 class _Runner:
     """One engine's loop: its static state, the attempt and re-prepare
     functions over it, and (on CUDA) their graphs.
@@ -199,7 +206,8 @@ class _Runner:
         self.pool = pool
         self.state = None
         self.graphs = None          # (attempt, refresh) on CUDA
-        self.kernel_nodes = (0, 0)  # fused-kernel launches in each graph
+        #: launches of each of ``_kernel_counters()`` in each graph
+        self.kernel_nodes = ((), ())
         #: tensors read back to the host, and prepares run (block entries,
         #: re-prepares, the warm-up's), so far
         self.host_reads = 0
@@ -390,8 +398,7 @@ class _Runner:
         _Runner.capture_seconds += sp.seconds
 
     def _capture_graphs(self) -> None:
-        from ..kernels import fused
-        counter = fused.fused_evaluate_assemble_cuda
+        counters = _kernel_counters()
         state = _leaves(self.state)
         saved = [t.clone() for t in state]
         side = _warmup_stream()
@@ -406,27 +413,29 @@ class _Runner:
             t.copy_(keep)
         torch.cuda.synchronize()
 
-        # A capture records the kernel's launch and makes none: take what
-        # the wrapper counted back, and count it on every replay instead.
-        before = counter.launches
+        # A capture records the kernels' launches and makes none: take what
+        # the wrappers counted back, and count them on every replay instead.
+        before = [c.launches for c in counters]
         trace.captured()              # what a failed capture may have left
         g_attempt = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g_attempt, pool=self.pool):
             with trace.device_span("attempt"):
                 self._attempt()
         spans_attempt = trace.captured()
-        in_attempt = counter.launches - before
+        in_attempt = [c.launches - n for c, n in zip(counters, before)]
         g_refresh = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g_refresh, pool=g_attempt.pool()):
             # timed as part of the attempt that asks for it
             with trace.device_span("attempt"):
                 self._refresh()
         spans_refresh = trace.captured()
-        in_refresh = counter.launches - before - in_attempt
-        counter.launches = before
+        in_refresh = [c.launches - n - a
+                      for c, n, a in zip(counters, before, in_attempt)]
+        for c, n in zip(counters, before):
+            c.launches = n
         self.graphs = (g_attempt, g_refresh)
         self.spans = (spans_attempt, spans_refresh)
-        self.kernel_nodes = (in_attempt, in_refresh)
+        self.kernel_nodes = (tuple(in_attempt), tuple(in_refresh))
 
     # --- one attempt, from the host ---------------------------------------
 
@@ -437,11 +446,10 @@ class _Runner:
             (self._attempt, self._refresh)[which]()
             self.prepares += which
             return
-        from ..kernels import fused
         self.graphs[which].replay()
         self.prepares += which
-        fused.fused_evaluate_assemble_cuda.launches += \
-            self.kernel_nodes[which]
+        for c, n in zip(_kernel_counters(), self.kernel_nodes[which]):
+            c.launches += n
 
     def attempt(self) -> int:
         """One step attempt, and the prepare it asked for; returns the

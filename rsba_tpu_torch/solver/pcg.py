@@ -1,8 +1,10 @@
 """Iterative Schur solver: preconditioned conjugate gradients on the
 reduced camera system.
 
-Counterpart of ``rsba_tpu/solver/pcg.py``.  ``pcg`` is the loop both the
-banded engine and the flat ``iterative_schur`` engine run.  The flat
+Counterpart of ``rsba_tpu/solver/pcg.py``.  ``pcg`` is the loop the flat
+``iterative_schur`` engine runs, and the banded engine under
+``cluster_jacobi``; the banded engine's block-Jacobi PCG is one kernel
+(``kernels/band_pcg.py``), whose plain version repeats this loop.  The flat
 engine never materialises S = B_λ − E C_λ⁻¹ Eᵀ: ``SchurFreeOperator``
 applies it as five batched products over the observation axis, with
 gathers and fixed-order segmented sums (``flatplan.GroupPlan``).

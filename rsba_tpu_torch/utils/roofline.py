@@ -16,7 +16,8 @@ There is no compiler cost model to ask, so the counts are computed from
 shapes, for the parts that carry a phase of the banded engine: the fused
 evaluate+assemble kernel (``kernel_bound``, ``slot_flops``) for prepare;
 the F C⁻¹ Fᵀ batched product and the PCG's band products for solve_step
-(``solve_step_counts``).  The element-wise work around them is not
+(``solve_step_counts``); the band PCG kernel's bytes
+(``band_pcg_bound``).  The element-wise work around them is not
 counted, so a phase's utilisation is a lower bound; a phase of an engine
 with no count here reports its time and ``"flops": None, "bytes": None``.
 
@@ -107,6 +108,17 @@ def solve_step_counts(NR: int, W: int, G: int, P: int, itemsize: int,
             "bmm_flops": bmm_flops, "bmm_bytes": bmm_bytes,
             "band_product_flops": band_flops,
             "band_product_bytes": band_bytes, "cg_passes": cg_passes}
+
+
+def band_pcg_bound(P: int, W: int, itemsize: int, live_passes: int) -> dict:
+    """The least time the card could take for ``live_passes`` passes of
+    the band PCG kernel (``kernels/band_pcg.py``): a pass reads the P block
+    rows of 6 × 6(2W−1) and the 6 × 6 inverses once, and four vectors of
+    6P (p, q, r, z) once each, at the memory rate."""
+    _, peak_bw = peaks()
+    per_pass = itemsize * P * (6 * 6 * (2 * W - 1) + 36 + 4 * 6)
+    return {"bytes_per_pass": per_pass, "live_passes": live_passes,
+            "bound_ms": live_passes * per_pass / peak_bw * 1e3}
 
 
 def _banded_counts(fns: dict, p, options=None):

@@ -18,10 +18,11 @@ from rsba_tpu.problem import synthetic as jsyn
 from rsba_tpu.solver import SolverOptions as JOptions
 from rsba_tpu.solver import pcg as jpcg
 from rsba_tpu.solver import solve as jsolve
+from rsba_tpu_torch.kernels import band_pcg
 from rsba_tpu_torch.problem import synthetic as tsyn
 from rsba_tpu_torch.problem import types as ttypes
-from rsba_tpu_torch.solver import (SolverOptions, banded_fused, lm_device,
-                                   make_solver_fns, solve)
+from rsba_tpu_torch.solver import (SolverOptions, lm_device, make_solver_fns,
+                                   solve)
 from rsba_tpu_torch.solver import pcg as tpcg
 
 # The problems are tiny and the test workers run side by side.
@@ -202,28 +203,30 @@ def test_termination_codes_match_the_reference():
 @pytest.fixture(scope="module")
 def band_system():
     """(S dense, M⁻¹ dense, b) of the first solve step of the tiny
-    flagship: the operator and preconditioner ``solve_step`` hands to
-    ``pcg``, applied to the identity."""
+    flagship: the band (block rows and their neighbours) and the 6×6
+    inverses ``solve_step`` hands to PCG, made dense."""
     fl = __graft_entry__._tiny_flagship(jnp.float64)
     problem, params0 = _port(fl)
     fns = make_solver_fns(problem, SolverOptions())
     aux = fns["prepare"](fns["to_internal"](params0))
     seen = {}
-    real = banded_fused.pcg
+    real = band_pcg.band_pcg
 
-    def spy(matvec, precond, b, max_iterations, eta):
-        seen.update(matvec=matvec, precond=precond, b=b)
-        return real(matvec, precond, b, max_iterations, eta)
+    def spy(rows, nbr, Minv, b, max_iterations, eta):
+        seen.update(rows=rows, nbr=nbr, Minv=Minv, b=b)
+        return real(rows, nbr, Minv, b, max_iterations, eta)
 
-    banded_fused.pcg = spy
+    band_pcg.band_pcg = spy
     try:
         fns["solve_step"](aux, 1e4)
     finally:
-        banded_fused.pcg = real
+        band_pcg.band_pcg = real
+    rows, nbr = seen["rows"], seen["nbr"]
+    P = rows.shape[0]
     eye = torch.eye(seen["b"].numel(), dtype=torch.float64)
-    S = torch.stack([seen["matvec"](e) for e in eye], dim=1)
-    Minv = torch.stack([seen["precond"](e) for e in eye], dim=1)
-    return S, Minv, seen["b"]
+    S = torch.stack([torch.bmm(rows, e.reshape(P, 6)[nbr].reshape(P, -1, 1))
+                     .reshape(-1) for e in eye], dim=1)
+    return S, torch.block_diag(*seen["Minv"]), seen["b"]
 
 
 @pytest.mark.parametrize("max_iterations,eta", [(100, 1e-2), (100, 1e-8),

@@ -122,6 +122,7 @@ def test_import_leaves_jax_out():
         "import sys; sys.path.insert(0, sys.argv[1]); "
         "import rsba_tpu_torch, rsba_tpu_torch.solver, "
         "rsba_tpu_torch.solver.banded_fused, rsba_tpu_torch.kernels.fused, "
+        "rsba_tpu_torch.kernels.band_pcg, "
         "rsba_tpu_torch.kernels.build, rsba_tpu_torch.problem.synthetic, "
         "rsba_tpu_torch.solver.lm_device, rsba_tpu_torch.solver.residuals, "
         "rsba_tpu_torch.solver.assembly, rsba_tpu_torch.solver.flatplan, "
