@@ -96,7 +96,17 @@ Phases, each raising on failure (exit code 1):
    beside them; then phase 6's covariance and gradient check at the
    ``dense_schur`` solution, its intrinsics block included.  The flat
    engines' prepare is ``residuals.evaluate``: this phase launches no
-   kernel of csrc/, and holds it to 0 launches.
+   kernel of csrc/, and holds it to 0 launches;
+12. config 5 (rs_mhost_pcg, 10,001 poses, 1M points) at full size in
+   float32, where the band PCG kernel's rows do not fit shared memory:
+   the band PCG kernel on a seeded band of config 5's shape (P = 10,001,
+   W = 9) as in phase 2, its plan required to stream the rows from global
+   memory in both dtypes, and its time against its bound; the fused
+   kernel against its plain version on config 5's start, equal bits from
+   two launches, and the prepare's folded sums through the window plan's
+   two fold tables (kernel against plain version, and the fold against
+   its definition in float64); then one solve through the captured loop,
+   held as phase 3 holds config 4's.
 
 The last two lines are a JSON record of the kernels and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -119,7 +129,10 @@ RMSE_ANCHOR = {"rs_slerp_robust": 0.79695, "rs_video_linear": 0.65990,
                # phase 11's problem, solved in float64 through dense_schur
                # from its perturbed start by rsba_tpu and by this port on
                # the CPU: 0.6370930 px in both, focal 900.2078
-               "gs_small_selfcal": 0.63709}
+               "gs_small_selfcal": 0.63709,
+               # config 5, float32: benchmarks/SCALING.json (the reference
+               # on the TPU) and this port's PR 5 solve, 0.63570 px
+               "rs_mhost_pcg": 0.6357}
 SELFCAL_FOCAL_F64 = 900.208
 RMSE_TOL = 0.002
 DOGLEG_MAX_ATTEMPTS = 12      # float64 takes 3 to 4 on config 1
@@ -127,6 +140,7 @@ N_OBS_CONFIG4 = 910092        # benchmarks/SCALING.json, float64 generator
 KERNEL_SOURCE = "rsba_tpu_torch/csrc/fused_evaluate_assemble.cu"
 KERNEL_REPLACES = "rsba_tpu/kernels/fused.py:469"
 BAND_PCG_SOURCE = "rsba_tpu_torch/csrc/band_pcg.cu"
+CONFIG5_BAND = (10001, 9)     # config 5's poses and band half-width W
 PIXEL_NOISE = 0.5             # of every synthetic sequence here
 
 
@@ -415,17 +429,16 @@ def graph_ms(f, n):
     return a.elapsed_time(b) / n
 
 
-def band_pcg_phase(ba4, card):
-    """The band PCG kernel against its plain version on config 4's first
-    step (radius 1e4): float64 at 1e-9 with equal passes, float32 with
-    passes within 3% and x within 1e-2 of max|x|, equal bits from two
+def band_pcg_phase(S, b, label, card):
+    """The band PCG kernel against its plain version on the band ``S``
+    and right-hand side ``b``: float64 at 1e-9 with equal passes, float32
+    with passes within 3% and x within 1e-2 of max|x|, equal bits from two
     launches; then its time, in a CUDA graph as the loop runs it, against
     its bound and the plain version's (turns plain, kernel, kernel,
     plain)."""
     import torch
     from rsba_tpu_torch.kernels import band_pcg
     from rsba_tpu_torch.utils.roofline import band_pcg_bound
-    S, b = band_system(ba4)
     P, W = S.shape[0], S.shape[1]
     runs = {}
     for dtype in (torch.float64, torch.float32):
@@ -441,16 +454,19 @@ def band_pcg_phase(ba4, card):
         dx = float((out[0] - ref[0]).abs().max() / ref[0].abs().max())
         dr = float((out[1] - ref[1]).abs().max() / bd.abs().max())
         rel = float(out[1].norm() / bd.norm())
-        log(f"band PCG vs plain at config-4 shapes ({str(dtype)[6:]}, P={P} "
-            f"W={W}): passes {k} / {kr}, max|dx|/max|x| {dx:.3e}, "
-            f"max|dr|/max|b| {dr:.3e}, |r|/|b| {rel:.4e}; two launches "
-            f"torch.equal")
+        plan = band_pcg._PLANS[(P, W, dtype, bd.device)]
+        log(f"band PCG vs plain at {label} ({str(dtype)[6:]}, P={P} W={W}, "
+            f"{plan.ctas} CTAs of {plan.poses_per_cta} poses, rows in "
+            f"{'shared' if plan.rows_in_smem else 'global'} memory, "
+            f"{plan.smem_bytes} B shared): passes {k} / {kr}, max|dx|/max|x| "
+            f"{dx:.3e}, max|dr|/max|b| {dr:.3e}, |r|/|b| {rel:.4e}; two "
+            f"launches torch.equal")
         ok = (k == kr and dx <= 1e-9 and dr <= 1e-9
               if dtype == torch.float64
               else abs(k - kr) <= 0.03 * kr + 1 and dx <= 1e-2)
         if not ok:
             raise AssertionError(f"band PCG differs from its plain version "
-                                 f"({dtype})")
+                                 f"at {label} ({dtype})")
         runs[dtype] = (inp, bd, k)
     inp, bd, k = runs[torch.float32]
     kernel = lambda: band_pcg.band_pcg_cuda(*inp, bd, 100, 1e-2)  # noqa
@@ -459,10 +475,10 @@ def band_pcg_phase(ba4, card):
                       graph_ms(kernel, 200), graph_ms(plain, 20))
     ms, plain_ms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
     bound = band_pcg_bound(P, W, 4, k)
-    log(f"band PCG time at config-4 shapes (float32, {k} live passes, "
-        f"CUDA graph): kernel {k1:.4f} / {k2:.4f} ms, plain version "
-        f"{p1:.3f} / {p2:.3f} ms; bound {bound['bytes_per_pass']} B a pass "
-        f"at 3.35e12 B/s = {bound['bound_ms']:.4f} ms; kernel "
+    log(f"band PCG time at {label} (float32, {k} live passes, CUDA graph): "
+        f"kernel {k1:.4f} / {k2:.4f} ms, plain version {p1:.3f} / "
+        f"{p2:.3f} ms; bound {bound['bytes_per_pass']} B a pass at "
+        f"3.35e12 B/s = {bound['bound_ms']:.4f} ms; kernel "
         f"{ms / bound['bound_ms']:.1f}x its bound [{card}]")
     # A pass's time: 1 and 100 passes forced (eta = 0), as a solve's
     # attempts near the optimum make 100.
@@ -470,8 +486,8 @@ def band_pcg_phase(ba4, card):
         *inp, bd, n, 0.0), 200) for n in (1, 100))
     per_pass = (hundred - one) / 99
     bound100 = band_pcg_bound(P, W, 4, 100)
-    log(f"band PCG forced passes: 1 pass {1e3 * one:.1f} us, 100 passes "
-        f"{hundred:.4f} ms: {1e3 * per_pass:.2f} us a pass against "
+    log(f"band PCG forced passes at {label}: 1 pass {1e3 * one:.1f} us, 100 "
+        f"passes {hundred:.4f} ms: {1e3 * per_pass:.2f} us a pass against "
         f"{1e3 * bound100['bound_ms'] / 100:.2f} us by bytes "
         f"({hundred / bound100['bound_ms']:.1f}x the bound of 100 passes)")
     plan = band_pcg._PLANS[(P, W, torch.float32, bd.device)]
@@ -1242,6 +1258,92 @@ def self_calibration_phase(card):
     log(f"phase 11 [{card}]: {time.perf_counter() - t0:.1f} s")
 
 
+def fold_plain(plan, v):
+    """``WindowPlan.fold`` by its definition, out[row_base[r] + w] +=
+    v[r, w], as one float64 ``index_add_`` (atomics: any order)."""
+    idx = plan._win_idx().reshape(-1)
+    rest = tuple(v.shape[2:])
+    flat = v.double().reshape((idx.numel(),) + rest)
+    keep = idx < plan.n_poses
+    out = flat.new_zeros((plan.n_poses,) + rest)
+    return out.index_add_(0, idx[keep], flat[keep])
+
+
+def config5_phase(card):
+    """Phase 12: config 5 (rs_mhost_pcg) at full size in float32.  The
+    band PCG kernel on a seeded band of config 5's shape (P = 10,001,
+    W = 9) through ``band_pcg_phase``, whose plan must stream the rows from
+    global memory in both dtypes; the fused kernel against its plain
+    version on config 5's start (``compare`` at 1e-4·max|ref|, equal bits
+    from two launches), whose window plan must fold through its second
+    table; the prepare's folded sums (g_cam, B0, B1) from the kernel
+    against those from the plain version at 1e-4·max|ref|, and the fold
+    of the kernel's cells against the fold's definition in float64 at
+    1e-12·max|ref|; then one solve through the captured loop, held as
+    phase 3 holds config 4's (one band PCG launch per attempt, the fused
+    kernel once per prepare, CONVERGENCE at the anchor)."""
+    import numpy as np
+    import torch
+    from rsba_tpu_torch.kernels import band_pcg, fused
+    from rsba_tpu_torch.problem import synthetic
+    t0 = time.perf_counter()
+    name = "rs_mhost_pcg"
+    log(f"phase 12, config 5 ({name}) at full size [{card}]")
+    P, W = CONFIG5_BAND
+    S = spd_band(P, W, 4, torch.float64, "cuda")
+    b = torch.from_numpy(np.random.default_rng(5).standard_normal(6 * P)
+                         ).to(S)
+    pcg = band_pcg_phase(S, b, "config-5 shapes", card)
+    for dtype in (torch.float64, torch.float32):
+        if band_pcg._PLANS[(P, W, dtype, S.device)].rows_in_smem:
+            raise AssertionError(f"config 5's band keeps its rows in shared "
+                                 f"memory ({dtype}): the streamed branch "
+                                 "did not run")
+    del S, b
+
+    ba = synthetic.CONFIGS[name](scale=1.0, dtype=torch.float32,
+                                 device="cuda")
+    plan, _, _, inp = kernel_inputs(ba)
+    if (plan.n_poses, plan.W) != CONFIG5_BAND or not plan.heavy_pose.numel():
+        raise AssertionError(f"config 5's window plan: P {plan.n_poses}, W "
+                             f"{plan.W}, heavy poses "
+                             f"{plan.heavy_pose.numel()}")
+    err = compare("config5_shapes", ba, rel_to_max=1e-4)
+    check_equal_bits(ba)
+    model, loss = ba.problem.model, ba.problem.loss
+    out = fused.fused_evaluate_assemble_cuda(*inp, model=model, loss=loss)
+    ref = fused.fused_evaluate_assemble_reference(*inp, model=model,
+                                                  loss=loss)
+    del inp
+    for part, key in (("g_cam", "gw"), ("B0", "b0"), ("B1", "b1")):
+        got, want = plan.fold(out[key]), plan.fold(ref[key])
+        scale = float(want.abs().max())
+        d_kernel = float((got - want).abs().max())
+        exact = fold_plain(plan, out[key])
+        d_fold = float((plan.fold(out[key].double()) - exact).abs().max())
+        log(f"config 5 prepare, folded {part} ({tuple(want.shape)}, fold "
+            f"tables {tuple(plan.fold_idx.shape)} and "
+            f"{tuple(plan.heavy_idx.shape)}): kernel against plain version "
+            f"max|Δ| {d_kernel:.3e} at max|ref| {scale:.3e}; float64 fold "
+            f"against its definition {d_fold:.3e}")
+        if not (d_kernel <= 1e-4 * scale
+                and d_fold <= 1e-12 * float(exact.abs().max())):
+            raise AssertionError(f"config 5 prepare: folded {part} differs")
+    del out, ref
+    torch.cuda.empty_cache()
+
+    r = solve_config(name, card, "captured loop", ba=ba)
+    log(f"{name} [{card}]: band PCG launches {r['pcg_launches']} for "
+        f"{r['attempts']} step attempts + 1 capture warm-up, fused kernel "
+        f"launches {r['launches']}; phase 12 {time.perf_counter() - t0:.1f} s")
+    fold = {"fold_idx": list(plan.fold_idx.shape),
+            "heavy_idx": list(plan.heavy_idx.shape)}
+    return {"max_abs_err": err, "launches": r["launches"],
+            "window": [plan.NR, plan.W, plan.L, plan.G], **fold,
+            "band_pcg": dict(pcg, launches=r["pcg_launches"],
+                             attempts=r["attempts"])}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1314,7 +1416,7 @@ def main() -> int:
     times = time_prepares(ba4)
     log(f"kernel {times['kernel']:.3f} ms is "
         f"{times['kernel'] / bound['bound_ms']:.1f}x its bound")
-    pcg_times = band_pcg_phase(ba4, card)
+    pcg_times = band_pcg_phase(*band_system(ba4), "config-4 shapes", card)
     del ba4
     torch.cuda.empty_cache()
 
@@ -1401,6 +1503,9 @@ def main() -> int:
     # --- 11. self-calibration of a shared camera, flat engines -------------
     self_calibration_phase(card)
 
+    # --- 12. config 5: the band's rows in global memory, two fold tables ---
+    c5 = config5_phase(card)
+
     log(json.dumps({"kernels": [{
         "name": "fused_evaluate_assemble", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -1409,7 +1514,11 @@ def main() -> int:
         "launches_session": launches_session,
         "launches_sharded_1rank_nccl": launches_sharded,
         "launches_sharded_2rank_gloo": launches_sharded_ranks,
+        "launches_config5": c5["launches"],
         "max_abs_err": err4, "max_abs_err_session": err_session,
+        "max_abs_err_config5": c5["max_abs_err"],
+        "config5_window": {k: c5[k] for k in ("window", "fold_idx",
+                                              "heavy_idx")},
         "ms": times["kernel"], "plain_ms": times["plain"],
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None,
@@ -1422,7 +1531,8 @@ def main() -> int:
         "live_passes": pcg_times["live_passes"],
         "ms_100_passes": pcg_times["ms_100_passes"],
         "us_per_pass": pcg_times["us_per_pass"],
-        "plan": pcg_times["plan"], "library_ms": None}]}))
+        "plan": pcg_times["plan"], "config5": c5["band_pcg"],
+        "library_ms": None}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

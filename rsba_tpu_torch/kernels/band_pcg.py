@@ -21,6 +21,13 @@ so the call stays inside a CUDA graph.  It raises unless the tensors are
 on CUDA.  ``band_pcg_reference`` is the plain version, the masked-pass
 loop of ``pcg`` over the band's rows; ``band_pcg`` picks the kernel for
 CUDA tensors and the plain version for CPU tensors.
+
+Each call opens a host span ``band_pcg.plan`` (``utils/trace.py``) whose
+attributes are the band's ``P``, ``W`` and ``itemsize`` and the launch
+plan: ``ctas``, ``poses_per_cta``, ``rows_in_smem``, ``smem_bytes``.  On
+CUDA it is the plan the wrapper launches, at a capture or eagerly; on the
+CPU the plan the card would take first for these shapes (zeros where
+none fits).
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ import ctypes
 import dataclasses
 
 import torch
+
+from ..utils import trace
 
 DOF = 6
 THREADS = 1024          # a CTA's threads, NT in the CUDA source
@@ -180,6 +189,20 @@ def _plan(fn, P: int, W: int, dtype, device) -> LaunchPlan:
     return _PLANS[key]
 
 
+def _first_plan(P: int, W: int, itemsize: int):
+    """The first of ``launch_plans``, or None where none fits."""
+    try:
+        return launch_plans(P, W, itemsize)[0]
+    except ValueError:
+        return None
+
+
+def _plan_attrs(P: int, W: int, itemsize: int, plan) -> dict:
+    """The ``band_pcg.plan`` span's attributes; zeros without a plan."""
+    return dict(P=P, W=W, itemsize=itemsize,
+                **dataclasses.asdict(plan or LaunchPlan(0, 0, False, 0)))
+
+
 def band_pcg_cuda(rows, nbr, Minv, b, max_iterations: int, eta: float):
     """Launch the CUDA kernel; raises unless the tensors are on CUDA."""
     if b.device.type != "cuda":
@@ -189,13 +212,15 @@ def band_pcg_cuda(rows, nbr, Minv, b, max_iterations: int, eta: float):
     from .build import load
     fn = _entry(load("band_pcg").lib, b.dtype)
     plan = _plan(fn, P, W, b.dtype, b.device)
-    x, r = torch.empty_like(b), torch.empty_like(b)
-    iters = torch.empty((), dtype=torch.int32, device=b.device)
-    rc = fn(rows.data_ptr(), nbr.data_ptr(), Minv.data_ptr(), b.data_ptr(),
-            P, W, int(max_iterations), float(eta), x.data_ptr(),
-            r.data_ptr(), iters.data_ptr(), plan.ctas, plan.poses_per_cta,
-            int(plan.rows_in_smem), plan.smem_bytes,
-            torch.cuda.current_stream(b.device).cuda_stream, None)
+    with trace.span("band_pcg.plan",
+                    **_plan_attrs(P, W, b.element_size(), plan)):
+        x, r = torch.empty_like(b), torch.empty_like(b)
+        iters = torch.empty((), dtype=torch.int32, device=b.device)
+        rc = fn(rows.data_ptr(), nbr.data_ptr(), Minv.data_ptr(),
+                b.data_ptr(), P, W, int(max_iterations), float(eta),
+                x.data_ptr(), r.data_ptr(), iters.data_ptr(), plan.ctas,
+                plan.poses_per_cta, int(plan.rows_in_smem), plan.smem_bytes,
+                torch.cuda.current_stream(b.device).cuda_stream, None)
     if rc != 0:
         raise RuntimeError(f"band_pcg launch failed: error {rc}")
     band_pcg_cuda.launches += 1
@@ -208,5 +233,10 @@ band_pcg_cuda.launches = 0
 
 def band_pcg(rows, nbr, Minv, b, max_iterations: int, eta: float):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    impl = band_pcg_reference if b.device.type == "cpu" else band_pcg_cuda
-    return impl(rows, nbr, Minv, b, max_iterations, eta)
+    if b.device.type != "cpu":
+        return band_pcg_cuda(rows, nbr, Minv, b, max_iterations, eta)
+    P, W = rows.shape[0], (rows.shape[2] // DOF + 1) // 2
+    itemsize = b.element_size()
+    plan = _first_plan(P, W, itemsize) if trace.enabled() else None
+    with trace.span("band_pcg.plan", **_plan_attrs(P, W, itemsize, plan)):
+        return band_pcg_reference(rows, nbr, Minv, b, max_iterations, eta)

@@ -171,7 +171,9 @@ def make_problem(obs: Observations, n_poses: int, n_points: int,
 
 def validate_problem(problem: Problem) -> None:
     """Structural sanity checks: shapes, index ranges and finite
-    observation data.  Raises ValueError on the first violation."""
+    observation data.  Raises ValueError on the first violation.  The
+    checks reduce over the observations where they live; the host reads
+    back one small tensor of their results."""
     obs = problem.obs
     N = obs.n_obs
     for name in ("t", "pose_a", "pose_b", "intr_idx", "point", "mask"):
@@ -183,31 +185,47 @@ def validate_problem(problem: Problem) -> None:
     P = problem.pose_free.shape[0]
     M = problem.point_free.shape[0]
     K = problem.intr_free.shape[0]
-    host = lambda a: a.detach().cpu().numpy()  # noqa: E731
-    valid = host(obs.mask) > 0
-    for name, hi in (("pose_a", P), ("pose_b", P), ("intr_idx", K),
-                     ("point", M)):
-        idx = host(getattr(obs, name))[valid]
-        if idx.size and (idx.min() < 0 or idx.max() >= hi):
+    ranges = (("pose_a", P), ("pose_b", P), ("intr_idx", K), ("point", M))
+    (n_valid, *bounds, uv_finite, t_lo, t_hi,
+     pb_before_pa) = _validity_stats(obs, [n for n, _ in ranges]) \
+        if N else (0,) * (2 * len(ranges) + 5)
+    for (name, hi), lo_, hi_ in zip(ranges, bounds[0::2], bounds[1::2]):
+        lo_, hi_ = int(lo_), int(hi_)
+        if n_valid and (lo_ < 0 or hi_ >= hi):
             raise ValueError(
-                f"obs.{name} out of range [0, {hi}): "
-                f"[{idx.min()}, {idx.max()}]")
+                f"obs.{name} out of range [0, {hi}): [{lo_}, {hi_}]")
     if problem.intr_basis.shape[0] != 9:
         raise ValueError(
             f"intr_basis must be (9, ni), got "
             f"{tuple(problem.intr_basis.shape)}")
-    uv = host(obs.uv)[valid]
-    t = host(obs.t)[valid]
-    if uv.size and not np.isfinite(uv).all():
+    if n_valid and not uv_finite:
         raise ValueError("non-finite pixel coordinates in valid obs")
-    if t.size and (t.min() < 0.0 or t.max() > 1.0):
-        raise ValueError(f"shutter time t outside [0, 1]: "
-                         f"[{t.min()}, {t.max()}]")
-    if problem.model.rolling_shutter:
-        pa = host(obs.pose_a)[valid]
-        pb = host(obs.pose_b)[valid]
-        if pa.size and (pb < pa).any():
-            raise ValueError("rolling shutter requires pose_b >= pose_a")
+    if n_valid and (t_lo < 0.0 or t_hi > 1.0):
+        raise ValueError(f"shutter time t outside [0, 1]: [{t_lo}, {t_hi}]")
+    if problem.model.rolling_shutter and n_valid and pb_before_pa:
+        raise ValueError("rolling shutter requires pose_b >= pose_a")
+
+
+def _validity_stats(obs: Observations, index_names) -> list:
+    """Over the valid observations: their count, the least and largest of
+    each index array in ``index_names``, whether every pixel is finite,
+    the least and largest shutter time, and whether any pose_b lies
+    before its pose_a; reduced on the observations' device and read back
+    as one float64 tensor (indices below 2**53 are exact)."""
+    valid = obs.mask > 0
+    big = 2.0 ** 62
+    f64 = lambda a: a.to(torch.float64)  # noqa: E731
+    stats = [valid.sum()]
+    for name in index_names:
+        a = f64(getattr(obs, name))
+        stats += [torch.where(valid, a, big).min(),
+                  torch.where(valid, a, -big).max()]
+    t = f64(obs.t)
+    stats += [torch.where(valid[:, None], torch.isfinite(obs.uv), True).all(),
+              torch.where(valid, t, big).min(),
+              torch.where(valid, t, -big).max(),
+              (valid & (obs.pose_b < obs.pose_a)).any()]
+    return torch.stack([f64(x) for x in stats]).cpu().tolist()
 
 
 # --- numpy bridges -----------------------------------------------------------

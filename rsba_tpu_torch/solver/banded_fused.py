@@ -295,8 +295,9 @@ def solve_step(plan: WindowPlan, options: SolverOptions, aux: dict,
     runs the generic ``pcg``.
 
     Captured with tracing on, the reduced system and PCG are device spans
-    of their own (``reduced_system``, ``pcg``); the rest of the step is
-    the back-substitution."""
+    of their own (``reduced_system``, ``pcg``), and inside ``pcg`` the
+    band PCG kernel's launch alone is ``band_pcg``; the rest of the step
+    is the back-substitution."""
     P = plan.n_poses
     F, g_cam, g_pt = aux["F"], aux["g_cam"], aux["g_pt"]
     with trace.device_span("reduced_system"):
@@ -310,9 +311,11 @@ def solve_step(plan: WindowPlan, options: SolverOptions, aux: dict,
                 b.reshape(-1), options.max_cg_iterations, options.cg_eta)
         else:   # block Jacobi: the whole PCG in one kernel on the card
             rows, nbr = banded.band_rows(S)
-            dc_flat, r_cg, iters = band_pcg.band_pcg(
-                rows, nbr, invert_6x6_psd(S[:, 0]), b.reshape(-1),
-                options.max_cg_iterations, options.cg_eta)
+            Minv = invert_6x6_psd(S[:, 0])
+            with trace.device_span("band_pcg"):
+                dc_flat, r_cg, iters = band_pcg.band_pcg(
+                    rows, nbr, Minv, b.reshape(-1),
+                    options.max_cg_iterations, options.cg_eta)
     dc = dc_flat.reshape(P, POSE_DOF)
     # Back-substitute landmarks.
     dp = _cinv_apply(c6inv, -g_pt - et_apply_planes(F, plan.pose_windows(dc)))

@@ -66,7 +66,8 @@ def _make_solver_fns(problem: Problem, options: SolverOptions) -> dict:
                         host_bytes=0) as sp:
             plan = build_window_plan(problem)
             if plan is not None:
-                sp.set(NR=plan.NR, W=plan.W, L=plan.L, G=plan.G)
+                sp.set(NR=plan.NR, W=plan.W, L=plan.L, G=plan.G,
+                       **_fold_shapes(plan))
         if plan is not None:
             from .banded_fused import make_fused_solver_fns
             with trace.span("plan.engine"):
@@ -95,6 +96,16 @@ def _make_solver_fns(problem: Problem, options: SolverOptions) -> dict:
             sp.set(**_flat_sizes(problem, options.linear_solver))
     return _flat_fns(problem, options, prepare, solve_step,
                      engine=(options.linear_solver, "torch-flat"))
+
+
+def _fold_shapes(plan) -> dict:
+    """The shapes of a window plan's fold tables, for its ``plan.window``
+    span: ``fold_idx`` (P, K), and ``heavy_idx`` (H, K') where the plan
+    has a second table."""
+    out = {"fold_idx": tuple(plan.fold_idx.shape)}
+    if plan.heavy_pose.numel():
+        out["heavy_idx"] = tuple(plan.heavy_idx.shape)
+    return out
 
 
 def _flat_sizes(problem: Problem, linear_solver: str) -> dict:

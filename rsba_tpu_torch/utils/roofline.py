@@ -111,10 +111,12 @@ def solve_step_counts(NR: int, W: int, G: int, P: int, itemsize: int,
 
 
 def band_pcg_bound(P: int, W: int, itemsize: int, live_passes: int) -> dict:
-    """The least time the card could take for ``live_passes`` passes of
-    the band PCG kernel (``kernels/band_pcg.py``): a pass reads the P block
+    """The time of ``live_passes`` passes of the band PCG kernel
+    (``kernels/band_pcg.py``) at the HBM rate: a pass reads the P block
     rows of 6 × 6(2W−1) and the 6 × 6 inverses once, and four vectors of
-    6P (p, q, r, z) once each, at the memory rate."""
+    6P (p, q, r, z) once each.  Not a least time for either launch plan:
+    rows kept in shared memory cross HBM once a launch, and a streamed
+    pass of config 5's size fits the L2."""
     _, peak_bw = peaks()
     per_pass = itemsize * P * (6 * 6 * (2 * W - 1) + 36 + 4 * 6)
     return {"bytes_per_pass": per_pass, "live_passes": live_passes,

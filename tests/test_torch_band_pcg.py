@@ -71,10 +71,11 @@ def test_dispatch_keeps_cpu_tensors_off_the_kernel():
 
 
 # (P, W, itemsize): (CTAs, poses a CTA, rows in shared memory) of the first
-# plan; config 4 in float32 and float64, config 3, config 5, a tiny band
+# plan; config 4 in float32 and float64, config 3, config 5 in float64 and
+# float32, a tiny band
 PLANS = {(1001, 11, 4): (16, 63, True), (1001, 11, 8): (16, 63, False),
          (201, 13, 4): (16, 13, True), (10001, 9, 8): (16, 626, False),
-         (5, 3, 8): (5, 1, True)}
+         (10001, 9, 4): (16, 626, False), (5, 3, 8): (5, 1, True)}
 
 
 @pytest.mark.parametrize("shape", list(PLANS), ids=str)

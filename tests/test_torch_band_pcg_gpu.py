@@ -1,8 +1,10 @@
 """The band PCG kernel (``csrc/band_pcg.cu``) against its plain version on
 the card (``gpu`` marker; skipped without one).
 
-Seeded SPD bands at config 4's shape (P = 1001, W = 11) and config 3's
-(P = 201, W = 13), and two small ragged ones, in float64 and float32:
+Seeded SPD bands at config 4's shape (P = 1001, W = 11), config 3's
+(P = 201, W = 13) and config 5's (P = 10,001, W = 9, whose rows do not fit
+a CTA's shared memory and stream from global memory on every pass), and
+two small ragged ones, in float64 and float32:
 float64 at 1e-10 of max|x| and of max|b| with equal pass counts; float32,
 whose sums run in another order, at 1e-3 of max|x| and 5e-3 of max|b|,
 ten times the plain version's own float32 round-off (it sits up to 2.6e-5
@@ -28,7 +30,8 @@ from rsba_tpu_torch.solver import (SolverOptions, lm_device, make_solver_fns,
 
 # name: (P, W, shift of the band's spectrum)
 BANDS = {"config4": (1001, 11, 0.05), "config3": (201, 13, 0.05),
-         "ragged": (37, 4, 0.05), "tiny": (5, 3, 0.05)}
+         "ragged": (37, 4, 0.05), "tiny": (5, 3, 0.05),
+         "config5": (10001, 9, 0.05)}
 TOL = {torch.float64: (1e-10, 1e-10), torch.float32: (1e-3, 5e-3)}
 
 
@@ -67,10 +70,13 @@ def _close(got, want, b, dtype):
 @pytest.mark.parametrize("band", list(BANDS))
 def test_kernel_matches_plain_version(band, dtype):
     _card()
-    inp, b = _system(*BANDS[band], dtype)
+    P, W, shift = BANDS[band]
+    inp, b = _system(P, W, shift, dtype)
     got, want = _both(inp, b)
     _close(got, want, b, dtype)
     assert 0 < int(want[2]) < 100
+    if band == "config5":     # the rows stream from global memory
+        assert not band_pcg._PLANS[(P, W, dtype, b.device)].rows_in_smem
 
 
 @pytest.mark.gpu

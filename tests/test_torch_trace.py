@@ -21,6 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke
 from rsba_tpu_torch import SfmSession
 from rsba_tpu_torch.geometry import Loss
+from rsba_tpu_torch.kernels import band_pcg
 from rsba_tpu_torch.problem import synthetic, types
 from rsba_tpu_torch.solver import SolverOptions, lm, lm_device, solve, window
 from rsba_tpu_torch.tools import pipeline_gpu
@@ -29,7 +30,7 @@ from rsba_tpu_torch.utils import trace
 torch.set_num_threads(2)
 
 SOLVE_SPANS = {"solve", "plan", "plan.window", "plan.engine",
-               "solve.finish"}
+               "solve.finish", "band_pcg.plan"}
 
 
 def _cpu_profile():
@@ -179,13 +180,40 @@ def test_a_solve_leaves_the_spans_of_each_layer(traced_solves):
         "name"] == "plan"
     window, = [r for r in recs if r["name"] == "plan.window"]
     assert set(window["attrs"]) == {"NR", "W", "L", "G", "host_bytes",
-                                    "device"}
+                                    "device", "fold_idx", "heavy_idx"}
 
     s, recs, _ = traced_solves["auto"]
     names = _names(recs)
     assert set(names) == SOLVE_SPANS | {"loop.attempt"}   # eager: no capture
     assert names["loop.attempt"] >= s.num_iterations
     assert not any(r["device"] for r in recs)
+
+
+def test_band_pcg_plan_and_fold_tables_are_recorded(traced_solves):
+    """Every step solve of the banded engine opens ``band_pcg.plan`` with
+    the band's shape and the launch plan the card would take first for
+    it; ``plan.window`` carries the shapes of both fold tables."""
+    ba = _tiny()
+    plan = window.build_window_plan(ba.problem)
+    P = ba.problem.pose_free.shape[0]
+    first = band_pcg.launch_plans(P, plan.W, 8)[0]
+    want = dict(P=P, W=plan.W, itemsize=8, ctas=first.ctas,
+                poses_per_cta=first.poses_per_cta,
+                rows_in_smem=first.rows_in_smem,
+                smem_bytes=first.smem_bytes)
+    assert plan.heavy_pose.numel()          # a second table to record
+    for loop, step in (("off", "lm.solve_step"), ("auto", "loop.attempt")):
+        s, recs, _ = traced_solves[loop]
+        ids = _by_id(recs)
+        plans = [r for r in recs if r["name"] == "band_pcg.plan"]
+        assert len(plans) == _names(recs)[step] >= s.num_iterations
+        for r in plans:
+            assert r["attrs"] == want
+            assert ids[r["parent"]]["name"] == step
+        rec, = [r for r in recs if r["name"] == "plan.window"]
+        assert rec["attrs"]["fold_idx"] == tuple(plan.fold_idx.shape) \
+            == (P, plan.fold_idx.shape[1])
+        assert rec["attrs"]["heavy_idx"] == tuple(plan.heavy_idx.shape)
 
 
 def test_summary_times_are_the_spans_seconds(traced_solves):
@@ -316,13 +344,18 @@ def test_captured_solve_leaves_device_spans_per_attempt():
     assert len(attempts) == host["loop.attempt"] >= s.num_iterations
     assert all(ids[r["parent"]]["name"] == "loop.attempt" for r in attempts)
     assert dev["solve_step"] == dev["residual_pass"] == len(attempts)
-    assert dev["pcg"] == dev["reduced_system"] == len(attempts)
+    assert dev["pcg"] == dev["reduced_system"] == dev["band_pcg"] \
+        == len(attempts)
+    assert host["band_pcg.plan"] >= 1
+    assert all(ids[r["parent"]]["name"] == "pcg" for r in recs
+               if r["device"] and r["name"] == "band_pcg")
     assert 0 < dev["prepare"] <= len(attempts)
     total = lambda n: sum(r["seconds"] for r in recs  # noqa: E731
                           if r["device"] and r["name"] == n)
     parts = total("prepare") + total("solve_step") + total("residual_pass")
     assert 0.9 * total("attempt") <= parts <= total("attempt")
     assert total("pcg") + total("reduced_system") <= total("solve_step")
+    assert 0 < total("band_pcg") <= total("pcg")
     assert s.linear_solver_time == pytest.approx(total("solve_step"))
     assert s.evaluation_time == pytest.approx(total("prepare")
                                               + total("residual_pass"))
