@@ -22,15 +22,26 @@ Phases, each raising on failure (exit code 1):
    (``csrc/band_pcg.cu``) against its plain version on config 4's first
    reduced system (float64 at 1e-9 with equal passes, float32 with passes
    within 3%), equal bits from two launches, and its time in a CUDA graph
-   against its bound and the plain version's;
+   against its bound and the plain version's; then the residual pass
+   (the second kernel of ``csrc/fused_evaluate_assemble.cu``: every
+   slot's ρ and the pairwise decrease against a loop-carried ρ_ref)
+   against its plain version on the same float64 fixtures, the
+   pose_b == pose_a and session-shaped variants and the wide-row fixture
+   (rtol = atol = 1e-9), and at config 4's shapes in float32 (ρ within
+   1e-5·max|ρ| plus four times the plain version's own round-off, the
+   decrease within 1e-5 of ½ Σ (ρ_ref + ρ)), equal bits from two launches,
+   and its time in a CUDA graph against ``residual_pass_bound``, beside
+   the plain version's and the window-layout plain path's;
 3. config 4 (rs_slerp_robust, 1,001 poses, 100k points) at full size in
    float32 through ``rsba_tpu_torch.solver.solve`` with the default
    options, which is the on-device loop replayed from CUDA graphs: the
    engine must be banded_schur/cuda+device_loop, every prepare must
    launch the kernel (a graph replay counts the launches it holds), every
    step attempt must launch the band PCG kernel once (and a capture's
-   warm-up once), the host must read back no more than one tensor per
-   attempt and block,
+   warm-up once), every captured attempt must hold one launch of the
+   residual pass and the re-prepare none (one more a block entry and a
+   capture's warm-up; none through the host loop), the host must read
+   back no more than one tensor per attempt and block,
    and the solve must converge to within 0.002 px of the float64
    inlier-RMSE anchor; a second solve on the same graphs must take the
    same accept/reject sequence; then the same problem through the host
@@ -105,7 +116,8 @@ Phases, each raising on failure (exit code 1):
    kernel against its plain version on config 5's start, equal bits from
    two launches, and the prepare's folded sums through the window plan's
    two fold tables (kernel against plain version, and the fold against
-   its definition in float64); then one solve through the captured loop,
+   its definition in float64); the residual pass at config 5's shapes as
+   at config 4's in phase 2; then one solve through the captured loop,
    held as phase 3 holds config 4's.
 
 The last two lines are a JSON record of the kernels and the result line
@@ -316,6 +328,159 @@ def check_equal_bits(ba):
                                  f"in {k}")
     log(f"two launches on the same {ba.name or 'fixture'} inputs: all seven "
         "outputs torch.equal  OK")
+
+
+def padding_on_camera_centres(inp):
+    """Residual-pass inputs whose columns without a valid slot have their
+    point on the centre of their window's first pose, with offset 0 and
+    t = 0 on every slot: each of those padded slots projects to 0/0.
+    Returns the inputs and one such slot (row, slot, column)."""
+    win, pts, uv, tt, mask, offs, rsf, intr = inp
+    empty = (mask <= 0).all(dim=1)                       # (NR, G)
+    rows, cols = empty.nonzero(as_tuple=True)
+    if rows.numel() == 0:
+        raise AssertionError("the problem has no column without a valid slot")
+    pts, tt, offs = pts.clone(), tt.clone(), offs.clone()
+    pts[rows, :, cols] = win[rows, 0, 4:7]
+    tt[rows, :, cols] = 0.0
+    offs[rows, :, cols] = 0
+    return ((win, pts, uv, tt, mask, offs, rsf, intr),
+            (int(rows[0]), 0, int(cols[0])))
+
+
+def residual_inputs(ba, edit=None):
+    """(plan, residual-pass inputs less ρ_ref) of a problem at its start;
+    ``edit`` maps the fused kernel's inputs first."""
+    plan, _, _, inp = kernel_inputs(ba)
+    if edit is not None:
+        inp = edit(inp)
+    return plan, inp[:2] + inp[3:]
+
+
+def compare_residual(name, ba, edit=None, seed=0):
+    """The residual kernel against its plain version on one problem, with
+    ρ_ref a seeded draw in [0, 2ρ) around the plain version's ρ.  Float64:
+    ρ and the decrease at rtol = atol = 1e-9.  Float32: ρ within
+    1e-5·max|ρ| plus four times the plain version's own float32 round-off
+    (its distance from the plain version in float64 on the same inputs),
+    the decrease within 1e-5 of ½ Σ (ρ_ref + ρ).  Both must be finite.
+    Returns max|Δρ|."""
+    import torch
+    from rsba_tpu_torch.kernels import fused
+    plan, inp = residual_inputs(ba, edit)
+    model, loss = ba.problem.model, ba.problem.loss
+    rho0 = fused.residual_pass_reference(*inp, None, model=model,
+                                         loss=loss)[0]
+    g = torch.Generator(device=rho0.device).manual_seed(seed)
+    ref = 2.0 * torch.rand(rho0.shape, generator=g, dtype=rho0.dtype,
+                           device=rho0.device) * rho0
+    want_rho, want_dec = fused.residual_pass_reference(*inp, ref,
+                                                       model=model, loss=loss)
+    rho, dec = fused.residual_pass_cuda(*inp, ref, model=model, loss=loss)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(rho).all() and torch.isfinite(dec)):
+        raise AssertionError(f"{name}: the residual pass is not finite")
+    err = float((rho - want_rho).abs().max())
+    scale = float(want_rho.abs().max())
+    derr = abs(float(dec) - float(want_dec))
+    if rho.dtype == torch.float64:
+        ok = (bool(torch.allclose(rho, want_rho, rtol=1e-9, atol=1e-9))
+              and derr <= 1e-9 + 1e-9 * abs(float(want_dec)))
+        limit = "rtol = atol = 1e-9"
+    else:
+        exact = fused.residual_pass_reference(
+            *(x.double() if x.is_floating_point() else x for x in inp),
+            ref.double(), model=model, loss=loss)[0]
+        roundoff = float((want_rho.double() - exact).abs().max())
+        dscale = 0.5 * float(ref.sum() + want_rho.sum())
+        ok = err <= 1e-5 * scale + 4.0 * roundoff and derr <= 1e-5 * dscale
+        limit = (f"1e-5 of max|ρ| + 4 x the plain version's round-off "
+                 f"{roundoff:.3e}; decrease 1e-5 of {dscale:.4e}")
+    rp = fused.residual_plan(plan.NR, plan.W, plan.G, rho.element_size())
+    log(f"residual pass vs plain {name} ({str(rho.dtype)[6:]}, NR={plan.NR} "
+        f"W={plan.W} L={plan.L} G={plan.G}, {rp.blocks} blocks of "
+        f"{rp.threads} threads, {rp.rows_per_block} row(s) a block, "
+        f"{rp.smem_bytes} B shared): max|Δρ| {err:.3e} at max|ρ| "
+        f"{scale:.3e}, decrease {float(dec):.6e} vs {float(want_dec):.6e} "
+        f"(|Δ| {derr:.3e}); limit {limit}  {'OK' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"{name}: the residual kernel differs from its "
+                             "plain version")
+    return err
+
+
+def check_residual_equal_bits(ba):
+    """Two residual launches on the same inputs give the same bits."""
+    import torch
+    from rsba_tpu_torch.kernels import fused
+    _, inp = residual_inputs(ba)
+    model, loss = ba.problem.model, ba.problem.loss
+    ref = fused.residual_pass_cuda(*inp, None, model=model, loss=loss)[0]
+    first = fused.residual_pass_cuda(*inp, ref, model=model, loss=loss)
+    second = fused.residual_pass_cuda(*inp, ref, model=model, loss=loss)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("two residual launches on the same inputs "
+                             "differ")
+    log(f"two residual launches on the same {ba.name or 'fixture'} inputs "
+        f"({str(ref.dtype)[6:]}): ρ and the decrease torch.equal  OK")
+
+
+def residual_phase(ba, label, card):
+    """The residual kernel at a configuration's shapes in float32: against
+    its plain version (``compare_residual``), equal bits from two
+    launches, then times in a CUDA graph as the loop runs it (turns plain,
+    kernel, kernel, plain) against ``residual_pass_bound``: the kernel
+    alone, the loop's whole ``cost_decrease_pair`` through it, the plain
+    version on the kernel's layout, and the plain residual path on the
+    window layout that the loop ran before the kernel."""
+    import torch
+    from rsba_tpu_torch.kernels import fused
+    from rsba_tpu_torch.solver import banded, banded_fused
+    from rsba_tpu_torch.utils.roofline import residual_pass_bound
+    err = compare_residual(label, ba)
+    check_residual_equal_bits(ba)
+    plan, statics, params, _ = kernel_inputs(ba)
+    _, inp = residual_inputs(ba)
+    problem, model, loss = ba.problem, ba.problem.model, ba.problem.loss
+    ref = fused.residual_pass_cuda(*inp, None, model=model, loss=loss)[0]
+    ref_w = banded._rho(banded.residuals_raw(banded_fused._as_v1(params),
+                                             plan, problem), loss)
+
+    def window_path():   # the loop's residual pass before the kernel
+        rho = banded._rho(banded.residuals_raw(banded_fused._as_v1(params),
+                                               plan, problem), loss)
+        return 0.5 * torch.sum(torch.where(plan.mask > 0, ref_w - rho, 0.0))
+
+    fns = {
+        "kernel": lambda: fused.residual_pass_cuda(*inp, ref, model=model,
+                                                   loss=loss),
+        "pair": lambda: banded_fused.cost_decrease_pair(
+            plan, problem, ref, params, statics, fused.residual_pass_cuda),
+        "plain": lambda: fused.residual_pass_reference(
+            *inp, ref, model=model, loss=loss),
+        "window_path": window_path,
+    }
+    t = {}
+    for kind, n in (("kernel", 200), ("pair", 200), ("plain", 20),
+                    ("window_path", 20)):
+        t[kind] = graph_ms(fns[kind], n)
+    for kind, n in (("window_path", 20), ("plain", 20), ("pair", 200),
+                    ("kernel", 200)):
+        t[kind] = 0.5 * (t[kind] + graph_ms(fns[kind], n))
+    bound = residual_pass_bound(plan.NR, plan.L, plan.G, 4, plan.W)
+    rp = fused.residual_plan(plan.NR, plan.W, plan.G, 4)
+    log(f"residual pass at {label} (float32, {bound['slots']} slots, CUDA "
+        f"graph): kernel {t['kernel']:.4f} ms, cost_decrease_pair through "
+        f"it {t['pair']:.4f} ms, plain version {t['plain']:.3f} ms, the "
+        f"window-layout plain path {t['window_path']:.3f} ms; bound "
+        f"{bound['bytes']} B at 3.35e12 B/s = {bound['bound_ms']:.4f} ms; "
+        f"kernel {t['kernel'] / bound['bound_ms']:.1f}x its bound "
+        f"({rp.blocks} blocks of {rp.threads}) [{card}]")
+    return {"ms": t["kernel"], "pair_ms": t["pair"],
+            "plain_ms": t["plain"], "window_path_ms": t["window_path"],
+            "bound_ms": bound["bound_ms"], "bytes": bound["bytes"],
+            "max_abs_err": err, "plan": rp.__dict__}
 
 
 def time_prepares(ba, n_kernel=20, n_plain=3):
@@ -545,18 +710,26 @@ def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
         fns = dict(fns, prepare=counted_prepare, solve_step=counted_step)
         count_prepares = lambda: prepares[0]  # noqa: E731
     real_attempt = lm_device._Runner.attempt
+    real_start = lm_device._Runner.start
+    starts = [0]
 
     def counted_attempt(runner):
         attempts[0] += 1
         return real_attempt(runner)
+
+    def counted_start(runner, *args):
+        starts[0] += 1
+        return real_start(runner, *args)
 
     before = count_prepares()
     captured = sum(r.graphs is not None for r in runners())
     torch.cuda.reset_peak_memory_stats()
     fused.fused_evaluate_assemble_cuda.launches = 0
     band_pcg.band_pcg_cuda.launches = 0
+    fused.residual_pass_cuda.launches = 0
     torch.cuda.synchronize()
     lm_device._Runner.attempt = counted_attempt
+    lm_device._Runner.start = counted_start
     try:
         t0 = time.perf_counter()
         params, s = solve(ba.problem, ba.params0, opts, fns=fns)
@@ -564,8 +737,10 @@ def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
         wall = time.perf_counter() - t0
     finally:
         lm_device._Runner.attempt = real_attempt
+        lm_device._Runner.start = real_start
     launches = fused.fused_evaluate_assemble_cuda.launches
     pcg_launches = band_pcg.band_pcg_cuda.launches
+    res_launches = fused.residual_pass_cuda.launches
     # a capture's warm-up runs one attempt eagerly, outside ``attempt``
     warmups = sum(r.graphs is not None for r in runners()) - captured
     n_prep = count_prepares() - before
@@ -576,8 +751,9 @@ def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
         f"{s.termination} ({s.message}), valid attempts {s.num_iterations} "
         f"({s.num_successful_steps} accepted) {seq}, CG iterations {cg}, "
         f"prepares {n_prep}, kernel launches {launches}, step attempts "
-        f"{attempts[0]}, band PCG launches {pcg_launches}, host read-backs "
-        f"{s.host_reads}")
+        f"{attempts[0]}, band PCG launches {pcg_launches}, residual pass "
+        f"launches {res_launches} ({starts[0]} block entries), host "
+        f"read-backs {s.host_reads}")
     log(f"{name} {tag} [{card}]: cost {s.initial_cost:.6e} -> "
         f"{s.final_cost:.6e}, inlier RMSE {s.final_rmse_inlier:.5f} px "
         f"(anchor {RMSE_ANCHOR[name]}), solve wall {wall:.3f} s, evaluation "
@@ -601,6 +777,18 @@ def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
         raise AssertionError(f"{name} {tag}: {pcg_launches} band PCG "
                              f"launches, want {want_pcg} ({attempts[0]} "
                              f"attempts, {warmups} capture warm-ups)")
+    # The loop's residual pass: one launch a captured attempt (and none in
+    # the re-prepare's graph), one a block entry (the ρ_ref seed) and one a
+    # capture's warm-up; the host loop and the flat engines launch none.
+    want_res = attempts[0] + warmups + starts[0] if looped and banded else 0
+    if res_launches != want_res:
+        raise AssertionError(f"{name} {tag}: {res_launches} residual pass "
+                             f"launches, want {want_res}")
+    for r in runners():
+        if r.graphs is not None and banded and (
+                r.kernel_nodes[0][2], r.kernel_nodes[1][2]) != (1, 0):
+            raise AssertionError(f"{name} {tag}: residual pass launches in "
+                                 f"the captured graphs {r.kernel_nodes}")
     if looped:
         blocks = 1
         # One tensor per attempt (invalid attempts leave no record, and one
@@ -625,7 +813,7 @@ def solve_config(name, card, tag, ba=None, fns=None, **option_kw):
             raise AssertionError(f"{name} {tag}: {f} shape {x.shape}")
     return {"ba": ba, "fns": fns, "summary": s, "params": params,
             "launches": launches, "pcg_launches": pcg_launches,
-            "attempts": attempts[0],
+            "res_launches": res_launches, "attempts": attempts[0],
             "wall": wall, "seq": seq, "cg": cg,
             "n_obs": int(ba.problem.obs.mask.sum())}
 
@@ -1331,17 +1519,22 @@ def config5_phase(card):
             raise AssertionError(f"config 5 prepare: folded {part} differs")
     del out, ref
     torch.cuda.empty_cache()
+    res = residual_phase(ba, "config-5 shapes", card)
+    torch.cuda.empty_cache()
 
     r = solve_config(name, card, "captured loop", ba=ba)
     log(f"{name} [{card}]: band PCG launches {r['pcg_launches']} for "
         f"{r['attempts']} step attempts + 1 capture warm-up, fused kernel "
-        f"launches {r['launches']}; phase 12 {time.perf_counter() - t0:.1f} s")
+        f"launches {r['launches']}, residual pass launches "
+        f"{r['res_launches']}; phase 12 {time.perf_counter() - t0:.1f} s")
     fold = {"fold_idx": list(plan.fold_idx.shape),
             "heavy_idx": list(plan.heavy_idx.shape)}
     return {"max_abs_err": err, "launches": r["launches"],
             "window": [plan.NR, plan.W, plan.L, plan.G], **fold,
             "band_pcg": dict(pcg, launches=r["pcg_launches"],
-                             attempts=r["attempts"])}
+                             attempts=r["attempts"]),
+            "residual_pass": dict(res, launches=r["res_launches"],
+                                  attempts=r["attempts"])}
 
 
 def main() -> int:
@@ -1385,18 +1578,24 @@ def main() -> int:
         ba = synthetic.make_ba_problem(dtype=torch.float64, device="cuda",
                                        **kw)
         compare(name, ba, rtol=1e-9, atol=1e-9)
+        compare_residual(name, ba)
         if name == "flagship_slerp_dist_huber":
             compare(name + "+same_pose", ba, rtol=1e-9, atol=1e-9,
                     edit=same_pose_on_some_slots)
+            compare_residual(name + "+same_pose", ba,
+                             edit=same_pose_on_some_slots)
         if name == "rs_nlerp":
             compare(name + "+session_shaped", session_shaped(ba), rtol=1e-9,
                     atol=1e-9)
+            compare_residual(name + "+session_shaped", session_shaped(ba))
     ba = synthetic.make_ba_problem(dtype=torch.float64, device="cuda",
                                    **chunked_fixture())
     plan = kernel_inputs(ba)[0]
     if fused.launch_plan(plan.W, plan.G, 8, True).chunks < 2:
         raise AssertionError("the chunked fixture fits one tile")
     compare("chunked_slerp_dist_huber", ba, rtol=1e-9, atol=1e-9)
+    compare_residual("chunked_slerp_dist_huber", ba)   # rows wider than 256
+    check_residual_equal_bits(ba)
     del ba
     ba4 = synthetic.CONFIGS["rs_slerp_robust"](scale=1.0,
                                                dtype=torch.float32,
@@ -1417,6 +1616,7 @@ def main() -> int:
     log(f"kernel {times['kernel']:.3f} ms is "
         f"{times['kernel'] / bound['bound_ms']:.1f}x its bound")
     pcg_times = band_pcg_phase(*band_system(ba4), "config-4 shapes", card)
+    res_times = residual_phase(ba4, "config-4 shapes", card)
     del ba4
     torch.cuda.empty_cache()
 
@@ -1454,6 +1654,9 @@ def main() -> int:
     pcg_launches = {"captured_loop": again["pcg_launches"],
                     "attempts": again["attempts"],
                     "host_loop": host["pcg_launches"]}
+    res_launches = {"captured_loop": again["res_launches"],
+                    "attempts": again["attempts"],
+                    "host_loop": host["res_launches"]}
     host_seq = host["seq"]
     del first, again, host
     torch.cuda.empty_cache()
@@ -1532,6 +1735,14 @@ def main() -> int:
         "ms_100_passes": pcg_times["ms_100_passes"],
         "us_per_pass": pcg_times["us_per_pass"],
         "plan": pcg_times["plan"], "config5": c5["band_pcg"],
+        "library_ms": None}, {
+        "name": "residual_pass", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": None, "launches_config4": res_launches,
+        "ms": res_times["ms"], "pair_ms": res_times["pair_ms"],
+        "plain_ms": res_times["plain_ms"],
+        "window_path_ms": res_times["window_path_ms"],
+        "bound_ms": res_times["bound_ms"], "bound_by": "bytes",
+        "plan": res_times["plan"], "config5": c5["residual_pass"],
         "library_ms": None}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
-// Fused evaluate + assemble for the banded Schur solver, CUDA C++ for sm_90a.
+// Fused evaluate + assemble for the banded Schur solver, and the residual
+// pass of its LM loop, CUDA C++ for sm_90a.
 //
-// Replaces the TPU kernel rsba_tpu/kernels/fused.py::fused_evaluate_assemble
-// (its pl.pallas_call over _kernel).  For every slot of the (NR, G, L)
+// The fused kernel (fused_kernel) replaces the TPU kernel
+// rsba_tpu/kernels/fused.py::fused_evaluate_assemble (its pl.pallas_call
+// over _kernel).  For every slot of the (NR, G, L)
 // window grid it computes the rolling-shutter reprojection residual
 // (SLERP / NLERP / lerp_aa pose at row time t, Brown-Conrady distortion),
 // the 15 tangent Jacobians over pose_a (6), pose_b (6) and the point (3),
@@ -80,9 +82,45 @@
 //   are read once with plain coalesced loads; TMA tensor maps are not
 //   needed.
 //
+// The residual pass, the second kernel here (residual_kernel, entry points
+// rsba_residual_pass_f32 / _f64), replaces no TPU kernel: the reference's
+// residual pass is XLA ops (rsba_tpu/solver/banded.py::residuals_raw).  On
+// a candidate's parameters it writes every slot's robust cost rho
+// (NR, L, G), 0 on padded slots, and per row 0.5 sum(rho_ref - rho) over
+// the valid slots, from the fused kernel's inputs less ptf.  The LM loop
+// seeds rho_ref with it and differences every attempt through it, so both
+// sides of a decrease come from one evaluator, and it shares this file's
+// prologue (values only), geometry, projection and loss with the fused
+// kernel, so the residual the LM differences and the one the prepare
+// assembles cannot drift apart.
+//
+// Bound: bytes.  A slot reads uv, t, mask, offset, rsf and rho_ref and
+// writes rho, 32 B in float32; at config 5 (NR = 10,920, L = 8, G = 112,
+// 9.78M slots) that and the point planes and pose windows are 0.33 GB,
+// 0.10 ms at 3.35 TB/s; config 4's 1.23M slots 0.012 ms.  A valid slot's
+// arithmetic is a few hundred FLOP, far under it.  Design:
+//
+// * Nothing of F's tile: the block's shared memory is its rows' prologues
+//   and one partial a thread (6-8 KB in float32), so registers, not shared
+//   memory, set the residency.
+// * A thread takes one column of one row and walks its L slots, each
+//   slot's inputs loaded one slot ahead; consecutive threads take
+//   consecutive columns, so every load and the rho store are coalesced
+//   along G.  A block takes R consecutive rows (R G columns rounded up to
+//   whole warps, at most 256 threads: two rows of 112 make 224 threads, no
+//   idle lane), chosen by the wrapper to leave at least four blocks an SM
+//   on all 132 SMs where the grid has them (5,460 blocks at config 5).
+// * The prologue is per row, by the block's threads together: the
+//   normalised poses and SLERP's pair rotations, as the fused kernel's
+//   prologue computes them but without tangents.
+// * Row sums without atomics: a thread sums its slots in order, a warp
+//   sums a row's partials with lanes striding in a fixed order and a
+//   butterfly; the wrapper sums the NR rows.  Two launches on the same
+//   inputs give the same bits.
+//
 // The per-slot arithmetic, the prologue and the row write-out are
 // __host__ __device__, so the same source builds as plain C++ (g++ -x c++)
-// with a sequential loop that fills the same seven outputs; warp shuffles,
+// with a sequential loop that fills the same outputs; warp shuffles,
 // shared memory and the tile stores sit under #ifdef __CUDACC__.
 //
 // Built with nvcc into a shared library with a plain C interface
@@ -345,43 +383,50 @@ constexpr int PRO_PAIR = 21;   // omega 3, domega 3x6
 constexpr int PRO_VALUES = PRO_POSE + 2 * PRO_PAIR;   // per window pose
 constexpr int P_AA = 16, P_C = 28, P_FREE = 31;
 
-// normalize(q * exp(delta)) at delta = 0, delta seeded on tangents AT..AT+2.
+// normalize(q * exp(delta)) at delta = 0, delta seeded on tangents AT..AT+2
+// (AT < 0: no tangent seeded, the values alone).
 template <typename T, int N, int AT>
 RSBA_HD Q<T, N> boxplus_seeded(const T* w) {
   V<T, N> delta = {D<T, N>::c(T(0)), D<T, N>::c(T(0)), D<T, N>::c(T(0))};
-  delta.x.d[AT] = T(1);
-  delta.y.d[AT + 1] = T(1);
-  delta.z.d[AT + 2] = T(1);
+  if constexpr (AT >= 0) {
+    delta.x.d[AT] = T(1);
+    delta.y.d[AT + 1] = T(1);
+    delta.z.d[AT + 2] = T(1);
+  }
   const Q<T, N> q = {D<T, N>::c(w[0]), D<T, N>::c(w[1]), D<T, N>::c(w[2]),
                      D<T, N>::c(w[3])};
   return q_normalize(q_mul(q, from_aa(delta)));
 }
 
-template <typename T, int N>
+// A dual's value, and with TANGENTS its tangents.
+template <bool TANGENTS, typename T, int N>
 RSBA_HD void store_dual(const D<T, N>& x, T* value, T* tangents) {
   *value = x.v;
+  if constexpr (TANGENTS) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) tangents[j] = x.d[j];
+    for (int j = 0; j < N; ++j) tangents[j] = x.d[j];
+  }
 }
 
-// Item i of the row's prologue: pose i for i < W, else pair i - W.
-template <typename T, int MODE>
-RSBA_HD void prologue_item(const Args<T>& a, int r, int i, T* pro) {
-  const int W = a.W;
-  const T* win = a.win + (size_t)r * W * 8;
+// Item i of a row's prologue (win: the row's W pose windows): pose i for
+// i < W, else pair i - W.  Without TANGENTS only the values are stored,
+// from the same arithmetic on one-tangent duals that nothing seeds.
+template <typename T, int MODE, bool TANGENTS = true>
+RSBA_HD void prologue_item(const T* win, int W, int i, T* pro) {
+  constexpr int NP = TANGENTS ? 3 : 1, NQ = TANGENTS ? 6 : 1;
   if (i < W) {
     const T* w = win + i * 8;
     T* p = pro + i * PRO_POSE;
-    const Q<T, 3> q = boxplus_seeded<T, 3, 0>(w);
-    store_dual(q.w, p + 0, p + 4);
-    store_dual(q.x, p + 1, p + 7);
-    store_dual(q.y, p + 2, p + 10);
-    store_dual(q.z, p + 3, p + 13);
+    const Q<T, NP> q = boxplus_seeded<T, NP, TANGENTS ? 0 : -1>(w);
+    store_dual<TANGENTS>(q.w, p + 0, p + 4);
+    store_dual<TANGENTS>(q.x, p + 1, p + 7);
+    store_dual<TANGENTS>(q.y, p + 2, p + 10);
+    store_dual<TANGENTS>(q.z, p + 3, p + 13);
     if (MODE == LERP_AA) {
-      const V<T, 3> aa = to_aa(q);
-      store_dual(aa.x, p + P_AA + 0, p + P_AA + 3);
-      store_dual(aa.y, p + P_AA + 1, p + P_AA + 6);
-      store_dual(aa.z, p + P_AA + 2, p + P_AA + 9);
+      const V<T, NP> aa = to_aa(q);
+      store_dual<TANGENTS>(aa.x, p + P_AA + 0, p + P_AA + 3);
+      store_dual<TANGENTS>(aa.y, p + P_AA + 1, p + P_AA + 6);
+      store_dual<TANGENTS>(aa.z, p + P_AA + 2, p + P_AA + 9);
     }
     p[P_C + 0] = w[4];
     p[P_C + 1] = w[5];
@@ -390,13 +435,13 @@ RSBA_HD void prologue_item(const Args<T>& a, int r, int i, T* pro) {
   } else if (MODE == SLERP) {
     const int k = i - W, oa = k >> 1, ob = oa + (k & 1);
     if (ob >= W) return;
-    const Q<T, 6> qa = boxplus_seeded<T, 6, 0>(win + oa * 8);
-    const Q<T, 6> qb = boxplus_seeded<T, 6, 3>(win + ob * 8);
-    const V<T, 6> om = to_aa(q_mul(q_conj(qa), qb));
+    const Q<T, NQ> qa = boxplus_seeded<T, NQ, TANGENTS ? 0 : -1>(win + oa * 8);
+    const Q<T, NQ> qb = boxplus_seeded<T, NQ, TANGENTS ? 3 : -1>(win + ob * 8);
+    const V<T, NQ> om = to_aa(q_mul(q_conj(qa), qb));
     T* p = pro + W * PRO_POSE + k * PRO_PAIR;
-    store_dual(om.x, p + 0, p + 3);
-    store_dual(om.y, p + 1, p + 9);
-    store_dual(om.z, p + 2, p + 15);
+    store_dual<TANGENTS>(om.x, p + 0, p + 3);
+    store_dual<TANGENTS>(om.y, p + 1, p + 9);
+    store_dual<TANGENTS>(om.z, p + 2, p + 15);
   }
 }
 
@@ -452,6 +497,122 @@ RSBA_HD T row_dot(const T* m, int rows, const T* x, int n, int j) {
   return s;
 }
 
+// The slot's pose at row time t, as values, with what the Jacobian needs
+// of the interpolation, and its camera-frame point.
+template <typename T>
+struct SlotGeom {
+  T q[4];              // q_t = [w, x, y, z]
+  T ta, tb;            // d c_t / d c_a, d c_t / d c_b
+  T v[3];              // angle-axis argument of from_aa
+  T e[4];              // SLERP: from_aa(t w)
+  T fk, fcw, fck;      // from_aa_values coefficients
+  T inv_n, sb;         // NLERP: 1 / |blend|, signed t
+  T Xr[3], uxv[3], Xc[3];   // X - c_t, u x Xr, X_cam
+};
+
+// pa, pb: the prologue records of pose_a and pose_b; pw: SLERP's pair
+// record (read for SLERP only).
+template <typename T, int MODE>
+RSBA_HD void slot_geometry(const T* pa, const T* pb, const T* pw, T t,
+                           const T* X0, SlotGeom<T>& g) {
+  T* q = g.q;
+  g.ta = T(1);
+  g.tb = T(0);
+  g.fk = g.fcw = g.fck = T(0);
+  g.inv_n = T(1);
+  g.sb = T(0);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) g.v[j] = T(0);
+  g.e[0] = T(1);
+  g.e[1] = g.e[2] = g.e[3] = T(0);
+  if constexpr (MODE == GS) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) q[c] = pa[c];
+  } else {
+    g.ta = T(1) - t;
+    g.tb = t;
+    if constexpr (MODE == SLERP) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) g.v[j] = t * pw[j];
+      from_aa_values(g.v, g.e[0], g.fk, g.fcw, g.fck);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) g.e[1 + j] = g.fk * g.v[j];
+      const T* e = g.e;
+      q[0] = pa[0] * e[0] - pa[1] * e[1] - pa[2] * e[2] - pa[3] * e[3];
+      q[1] = pa[0] * e[1] + pa[1] * e[0] + pa[2] * e[3] - pa[3] * e[2];
+      q[2] = pa[0] * e[2] - pa[1] * e[3] + pa[2] * e[0] + pa[3] * e[1];
+      q[3] = pa[0] * e[3] + pa[1] * e[2] - pa[2] * e[1] + pa[3] * e[0];
+    } else if constexpr (MODE == NLERP) {
+      const T dot = pa[0] * pb[0] + pa[1] * pb[1] + pa[2] * pb[2] + pa[3] * pb[3];
+      g.sb = dot < T(0) ? -t : t;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) q[c] = g.ta * pa[c] + g.sb * pb[c];
+      g.inv_n = T(1) / m_sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) q[c] *= g.inv_n;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        g.v[j] = g.ta * pa[P_AA + j] + g.tb * pb[P_AA + j];
+      }
+      from_aa_values(g.v, q[0], g.fk, g.fcw, g.fck);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) q[1 + j] = g.fk * g.v[j];
+    }
+  }
+
+  // X_cam = R(q_t) (X - c_t) = Xr + 2 (w (u x Xr) + u x (u x Xr)).
+  T* Xr = g.Xr;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    Xr[i] = X0[i] - (g.ta * pa[P_C + i] + g.tb * pb[P_C + i]);
+  }
+  const T w = q[0], u[3] = {q[1], q[2], q[3]};
+  T* uxv = g.uxv;
+  uxv[0] = u[1] * Xr[2] - u[2] * Xr[1];
+  uxv[1] = u[2] * Xr[0] - u[0] * Xr[2];
+  uxv[2] = u[0] * Xr[1] - u[1] * Xr[0];
+  g.Xc[0] = Xr[0] + T(2) * (w * uxv[0] + (u[1] * uxv[2] - u[2] * uxv[1]));
+  g.Xc[1] = Xr[1] + T(2) * (w * uxv[1] + (u[2] * uxv[0] - u[0] * uxv[2]));
+  g.Xc[2] = Xr[2] + T(2) * (w * uxv[2] + (u[0] * uxv[1] - u[1] * uxv[0]));
+}
+
+// Perspective, distortion and intrinsics at X_cam: the residual against
+// (u0, u1) and the 2x3 Jacobian M of the pixel in X_cam.
+template <typename T>
+struct Proj {
+  T r0, r1;
+  T M[2][3];
+};
+
+template <typename T>
+RSBA_HD void project_slot(const T* in, T sg, int use_distortion, const T* Xc,
+                          T u0, T u1, Proj<T>& pj) {
+  const T iz = T(1) / Xc[2];
+  const T x = sg * Xc[0] * iz, y = sg * Xc[1] * iz;
+  T xd = x, yd = y, d00 = T(1), d01 = T(0), d10 = T(0), d11 = T(1);
+  if (use_distortion) {
+    const T k1 = in[4], k2 = in[5], p1 = in[6], p2 = in[7], k3 = in[8];
+    const T r2 = x * x + y * y;
+    const T radial = T(1) + r2 * (k1 + r2 * (k2 + r2 * k3));
+    const T rp = k1 + r2 * (T(2) * k2 + T(3) * k3 * r2);   // d radial / d r2
+    xd = x * radial + T(2) * p1 * x * y + p2 * (r2 + T(2) * x * x);
+    yd = y * radial + p1 * (r2 + T(2) * y * y) + T(2) * p2 * x * y;
+    d00 = radial + T(2) * x * x * rp + T(2) * p1 * y + T(6) * p2 * x;
+    d01 = T(2) * x * y * rp + T(2) * p1 * x + T(2) * p2 * y;
+    d10 = d01;
+    d11 = radial + T(2) * y * y * rp + T(6) * p1 * y + T(2) * p2 * x;
+  }
+  pj.r0 = in[0] * xd + in[2] - u0;
+  pj.r1 = in[1] * yd + in[3] - u1;
+  pj.M[0][0] = in[0] * d00 * sg * iz;
+  pj.M[0][1] = in[0] * d01 * sg * iz;
+  pj.M[0][2] = -in[0] * (d00 * x + d01 * y) * iz;
+  pj.M[1][0] = in[1] * d10 * sg * iz;
+  pj.M[1][1] = in[1] * d11 * sg * iz;
+  pj.M[1][2] = -in[1] * (d10 * x + d11 * y) * iz;
+}
+
 // The slot's pose at row time t is a value q_t (no duals here: the
 // prologue holds every tangent that does not depend on t).  The 6 rotation
 // columns come from the two rows of M d(R(q) Xr)/dq pulled back through
@@ -464,87 +625,20 @@ RSBA_HD void slot_eval(const Args<T>& a, const T* pro, int oa, int rsi, T t,
   const T* pb = pro + (oa + rsi) * PRO_POSE;
   const T* pw = pro + a.W * PRO_POSE + (2 * oa + rsi) * PRO_PAIR;  // SLERP
 
-  // Pose at row time t.
-  T q[4];                                   // q_t = [w, x, y, z]
-  T ta = T(1), tb = T(0);                   // d c_t / d c_a, d c_t / d c_b
-  T v[3] = {T(0), T(0), T(0)};              // angle-axis argument of from_aa
-  T e[4] = {T(1), T(0), T(0), T(0)};        // SLERP: from_aa(t w)
-  T fk = T(0), fcw = T(0), fck = T(0);      // from_aa_values coefficients
-  T inv_n = T(1), sb = T(0);                // NLERP: 1 / |blend|, signed t
-  if constexpr (MODE == GS) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) q[c] = pa[c];
-  } else {
-    ta = T(1) - t;
-    tb = t;
-    if constexpr (MODE == SLERP) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) v[j] = t * pw[j];
-      from_aa_values(v, e[0], fk, fcw, fck);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) e[1 + j] = fk * v[j];
-      q[0] = pa[0] * e[0] - pa[1] * e[1] - pa[2] * e[2] - pa[3] * e[3];
-      q[1] = pa[0] * e[1] + pa[1] * e[0] + pa[2] * e[3] - pa[3] * e[2];
-      q[2] = pa[0] * e[2] - pa[1] * e[3] + pa[2] * e[0] + pa[3] * e[1];
-      q[3] = pa[0] * e[3] + pa[1] * e[2] - pa[2] * e[1] + pa[3] * e[0];
-    } else if constexpr (MODE == NLERP) {
-      const T dot = pa[0] * pb[0] + pa[1] * pb[1] + pa[2] * pb[2] + pa[3] * pb[3];
-      sb = dot < T(0) ? -t : t;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) q[c] = ta * pa[c] + sb * pb[c];
-      inv_n = T(1) / m_sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) q[c] *= inv_n;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) v[j] = ta * pa[P_AA + j] + tb * pb[P_AA + j];
-      from_aa_values(v, q[0], fk, fcw, fck);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) q[1 + j] = fk * v[j];
-    }
-  }
-
-  // X_cam = R(q_t) (X - c_t) = Xr + 2 (w (u x Xr) + u x (u x Xr)).
-  T Xr[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    Xr[i] = X0[i] - (ta * pa[P_C + i] + tb * pb[P_C + i]);
-  }
+  SlotGeom<T> g;
+  slot_geometry<T, MODE>(pa, pb, pw, t, X0, g);
+  Proj<T> pj;
+  project_slot(a.intr, a.projection_sign, a.use_distortion, g.Xc, u0, u1, pj);
+  const T* q = g.q;
+  const T ta = g.ta, tb = g.tb, fk = g.fk, fcw = g.fcw, fck = g.fck;
+  const T inv_n = g.inv_n, sb = g.sb;
+  const T* v = g.v;
+  const T* e = g.e;
+  const T* Xr = g.Xr;
+  const T* uxv = g.uxv;
   const T w = q[0], u[3] = {q[1], q[2], q[3]};
-  const T uxv[3] = {u[1] * Xr[2] - u[2] * Xr[1], u[2] * Xr[0] - u[0] * Xr[2],
-                    u[0] * Xr[1] - u[1] * Xr[0]};
-  const T Xc[3] = {
-      Xr[0] + T(2) * (w * uxv[0] + (u[1] * uxv[2] - u[2] * uxv[1])),
-      Xr[1] + T(2) * (w * uxv[1] + (u[2] * uxv[0] - u[0] * uxv[2])),
-      Xr[2] + T(2) * (w * uxv[2] + (u[0] * uxv[1] - u[1] * uxv[0]))};
-
-  // Perspective, distortion, intrinsics: value and 2x3 Jacobian M at Xc.
-  const T* in = a.intr;
-  const T sg = a.projection_sign;
-  const T iz = T(1) / Xc[2];
-  const T x = sg * Xc[0] * iz, y = sg * Xc[1] * iz;
-  T xd = x, yd = y, d00 = T(1), d01 = T(0), d10 = T(0), d11 = T(1);
-  if (a.use_distortion) {
-    const T k1 = in[4], k2 = in[5], p1 = in[6], p2 = in[7], k3 = in[8];
-    const T r2 = x * x + y * y;
-    const T radial = T(1) + r2 * (k1 + r2 * (k2 + r2 * k3));
-    const T rp = k1 + r2 * (T(2) * k2 + T(3) * k3 * r2);   // d radial / d r2
-    xd = x * radial + T(2) * p1 * x * y + p2 * (r2 + T(2) * x * x);
-    yd = y * radial + p1 * (r2 + T(2) * y * y) + T(2) * p2 * x * y;
-    d00 = radial + T(2) * x * x * rp + T(2) * p1 * y + T(6) * p2 * x;
-    d01 = T(2) * x * y * rp + T(2) * p1 * x + T(2) * p2 * y;
-    d10 = d01;
-    d11 = radial + T(2) * y * y * rp + T(6) * p1 * y + T(2) * p2 * x;
-  }
-  const T r0 = in[0] * xd + in[2] - u0;
-  const T r1 = in[1] * yd + in[3] - u1;
-  T M[2][3];
-  M[0][0] = in[0] * d00 * sg * iz;
-  M[0][1] = in[0] * d01 * sg * iz;
-  M[0][2] = -in[0] * (d00 * x + d01 * y) * iz;
-  M[1][0] = in[1] * d10 * sg * iz;
-  M[1][1] = in[1] * d11 * sg * iz;
-  M[1][2] = -in[1] * (d10 * x + d11 * y) * iz;
+  const T r0 = pj.r0, r1 = pj.r1;
+  const T(&M)[2][3] = pj.M;
 
   // Uncorrected Jacobian.
 #pragma unroll
@@ -887,7 +981,9 @@ fused_kernel(Args<T> a, int tile_cols, int vec_store) {
       (int)(round4((size_t)W * 18 * tile_cols) * sizeof(T) / 16);
 
   for (int i = tid; i < nw * W * KS; i += nt) acc[i] = T(0);
-  for (int i = tid; i < 3 * W; i += nt) prologue_item<T, MODE>(a, r, i, pro);
+  for (int i = tid; i < 3 * W; i += nt) {
+    prologue_item<T, MODE>(a.win + (size_t)r * W * 8, W, i, pro);
+  }
   T* my_acc = acc + (size_t)warp * W * KS;
 
   for (int g0 = 0; g0 < G; g0 += nt) {
@@ -1006,7 +1102,9 @@ int run(const Args<T>& a, int, int, int, void*) {
   std::vector<T> pro((size_t)W * PRO_VALUES), acc((size_t)W * KS);
   for (int r = 0; r < a.NR; ++r) {
     for (size_t i = 0; i < acc.size(); ++i) acc[i] = T(0);
-    for (int i = 0; i < 3 * W; ++i) prologue_item<T, MODE>(a, r, i, pro.data());
+    for (int i = 0; i < 3 * W; ++i) {
+      prologue_item<T, MODE>(a.win + (size_t)r * W * 8, W, i, pro.data());
+    }
     T* Frow = a.F + (size_t)r * W * 18 * G;
     for (size_t i = 0; i < (size_t)W * 18 * G; ++i) Frow[i] = T(0);
     for (int g = 0; g < G; ++g) {
@@ -1054,6 +1152,218 @@ int dispatch(const Args<T>& a, int rolling_shutter, int interp, int threads,
   return -3;
 }
 
+// --- the residual pass ------------------------------------------------------
+//
+// rho of every slot of the grid and the row sums of the pairwise decrease
+// 0.5 (rho_ref - rho) over the valid slots, from the same prologue,
+// geometry, projection and loss as the fused kernel's slots (values only).
+
+template <typename T>
+struct RArgs {
+  const T* win;
+  const T* pts;
+  const T* uv;
+  const T* tt;
+  const T* mask;
+  const int* offs;
+  const T* rsf;
+  const T* intr;
+  const T* rho_ref;   // may be null: rho_ref = 0
+  int NR, W, L, G;
+  int use_distortion, loss_kind;
+  T projection_sign, loss_scale;
+  T* rho;             // (NR, L, G), 0 on padded slots
+  T* dec;             // (NR) 0.5 sum over valid slots of (rho_ref - rho)
+};
+
+// One slot's inputs; every field is read whether or not the slot is valid
+// (the addresses are), so that the loads need not wait for the mask.
+template <typename T>
+struct RSlotIn {
+  bool valid;
+  int oa, rsi;
+  T t, u0, u1, ref;
+};
+
+template <typename T, bool RS>
+RSBA_HD RSlotIn<T> load_rslot(const RArgs<T>& a, int r, int l, int g) {
+  const size_t idx = ((size_t)r * a.L + l) * a.G + g;
+  RSlotIn<T> in;
+  in.valid = a.mask[idx] > T(0);
+  in.oa = a.offs[idx];
+  in.rsi = RS ? (int)a.rsf[idx] : 0;
+  in.t = a.tt[idx];
+  in.u0 = a.uv[(((size_t)r * 2 + 0) * a.L + l) * a.G + g];
+  in.u1 = a.uv[(((size_t)r * 2 + 1) * a.L + l) * a.G + g];
+  in.ref = a.rho_ref != nullptr ? a.rho_ref[idx] : T(0);
+  return in;
+}
+
+// rho of a valid slot, from the row's prologue (values only).
+template <typename T, int MODE>
+RSBA_HD T slot_rho(const RArgs<T>& a, const T* pro, const RSlotIn<T>& in,
+                   const T* X0) {
+  const T* pa = pro + in.oa * PRO_POSE;
+  const T* pb = pro + (in.oa + in.rsi) * PRO_POSE;
+  const T* pw = pro + a.W * PRO_POSE + (2 * in.oa + in.rsi) * PRO_PAIR;
+  SlotGeom<T> g;
+  slot_geometry<T, MODE>(pa, pb, pw, in.t, X0, g);
+  Proj<T> pj;
+  project_slot(a.intr, a.projection_sign, a.use_distortion, g.Xc, in.u0,
+               in.u1, pj);
+  const T sq = pj.r0 * pj.r0 + pj.r1 * pj.r1;
+  T rho, rho1, rho2;
+  loss_eval(a.loss_kind, a.loss_scale, sq, rho, rho1, rho2);
+  return rho;
+}
+
+// Column g of row r: writes rho over its L slots (a slot's inputs loaded
+// one slot ahead of their use) and returns its sum of rho_ref - rho over
+// the valid ones, in slot order.  A padded slot is skipped before any
+// arithmetic (its sentinel point can project to 0/0).
+template <typename T, int MODE>
+RSBA_HD T residual_column(const RArgs<T>& a, const T* pro, int r, int g) {
+  constexpr bool RS = MODE != GS;
+  const int L = a.L, G = a.G;
+  const T X0[3] = {a.pts[((size_t)r * 3 + 0) * G + g],
+                   a.pts[((size_t)r * 3 + 1) * G + g],
+                   a.pts[((size_t)r * 3 + 2) * G + g]};
+  T dec = T(0);
+  RSlotIn<T> next = load_rslot<T, RS>(a, r, 0, g);
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    const RSlotIn<T> in = next;
+    if (l + 1 < L) next = load_rslot<T, RS>(a, r, l + 1, g);
+    T rho = T(0);
+    if (in.valid) {
+      rho = slot_rho<T, MODE>(a, pro, in, X0);
+      dec += in.ref - rho;
+    }
+    a.rho[((size_t)r * L + l) * G + g] = rho;
+  }
+  return dec;
+}
+
+// Shared memory of one residual block, in values: the prologues of its
+// rows, then one partial sum per thread.
+RSBA_HD constexpr size_t residual_smem_values(int W, int rows, int threads) {
+  return round4((size_t)rows * W * PRO_VALUES) + (size_t)threads;
+}
+
+#ifdef __CUDACC__
+
+// A block takes R = rows_per_block consecutive rows, thread j the column
+// j % E of row j / E with E = min(G, threads) (with R = 1 and G wider than
+// the block, a thread walks the columns j, j + E, ...).  The block's
+// threads first fill its rows' prologues, then run their columns; each
+// row's partials are summed by one warp, lanes striding in a fixed order
+// and then a butterfly, so two launches on the same inputs give the same
+// bits.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(256)
+residual_kernel(RArgs<T> a, int rows_per_block) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int W = a.W, G = a.G;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, a.NR - r0);
+  T* pro = reinterpret_cast<T*>(smem_raw);
+  T* part = pro + round4((size_t)rows_per_block * W * PRO_VALUES);
+
+  for (int i = tid; i < rows * 3 * W; i += nt) {
+    const int k = i / (3 * W), j = i - k * 3 * W;
+    prologue_item<T, MODE, false>(a.win + (size_t)(r0 + k) * W * 8, W, j,
+                                  pro + (size_t)k * W * PRO_VALUES);
+  }
+  __syncthreads();
+
+  const int E = min(G, nt);
+  const int k = tid / E, gc = tid - k * E;
+  T dec = T(0);
+  if (k < rows) {
+    const T* rpro = pro + (size_t)k * W * PRO_VALUES;
+    for (int g = gc; g < G; g += E) {
+      dec += residual_column<T, MODE>(a, rpro, r0 + k, g);
+    }
+  }
+  part[tid] = dec;
+  __syncthreads();
+
+  for (int kk = warp; kk < rows; kk += nw) {
+    T s = T(0);
+    for (int i = lane; i < E; i += 32) s += part[(size_t)kk * E + i];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(FULL, s, m);
+    if (lane == 0) a.dec[r0 + kk] = T(0.5) * s;
+  }
+}
+
+template <typename T, int MODE>
+int run_residual(const RArgs<T>& a, int threads, int rows_per_block,
+                 int smem_bytes, void* stream) {
+  if (threads < 32 || threads > 256 || threads % 32 != 0 ||
+      rows_per_block < 1 ||
+      (rows_per_block > 1 && rows_per_block * a.G > threads)) {
+    return -1;
+  }
+  if ((size_t)smem_bytes !=
+      residual_smem_values(a.W, rows_per_block, threads) * sizeof(T)) {
+    return -2;
+  }
+  if (a.NR == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      residual_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.NR + rows_per_block - 1) / rows_per_block;
+  residual_kernel<T, MODE><<<blocks, threads, smem_bytes,
+                             (cudaStream_t)stream>>>(a, rows_per_block);
+  return (int)cudaGetLastError();
+}
+
+#else  // plain C++: the same arithmetic in a sequential loop
+
+template <typename T, int MODE>
+int run_residual(const RArgs<T>& a, int, int, int, void*) {
+  std::vector<T> pro((size_t)a.W * PRO_VALUES);
+  for (int r = 0; r < a.NR; ++r) {
+    for (int i = 0; i < 3 * a.W; ++i) {
+      prologue_item<T, MODE, false>(a.win + (size_t)r * a.W * 8, a.W, i,
+                                    pro.data());
+    }
+    T dec = T(0);
+    for (int g = 0; g < a.G; ++g) {
+      dec += residual_column<T, MODE>(a, pro.data(), r, g);
+    }
+    a.dec[r] = T(0.5) * dec;
+  }
+  return 0;
+}
+
+#endif
+
+template <typename T>
+int dispatch_residual(const RArgs<T>& a, int rolling_shutter, int interp,
+                      int threads, int rows_per_block, int smem_bytes,
+                      void* stream) {
+  switch (rolling_shutter ? 1 + interp : (int)GS) {
+    case GS:
+      return run_residual<T, GS>(a, threads, rows_per_block, smem_bytes,
+                                 stream);
+    case SLERP:
+      return run_residual<T, SLERP>(a, threads, rows_per_block, smem_bytes,
+                                    stream);
+    case NLERP:
+      return run_residual<T, NLERP>(a, threads, rows_per_block, smem_bytes,
+                                    stream);
+    case LERP_AA:
+      return run_residual<T, LERP_AA>(a, threads, rows_per_block, smem_bytes,
+                                      stream);
+  }
+  return -3;
+}
+
 }  // namespace rsba
 
 // threads, tile_cols and smem_bytes are the launch plan of
@@ -1077,3 +1387,26 @@ int dispatch(const Args<T>& a, int rolling_shutter, int interp, int threads,
   }
 RSBA_ENTRY(rsba_fused_evaluate_assemble_f32, float)
 RSBA_ENTRY(rsba_fused_evaluate_assemble_f64, double)
+
+// The residual pass: rho (NR, L, G) and dec (NR) from the fused kernel's
+// inputs less ptf, and rho_ref (NR, L, G) or null.  threads,
+// rows_per_block and smem_bytes are the launch plan of
+// rsba_tpu_torch/kernels/fused.py::residual_plan (ignored by the C++
+// build).  Returns as the entry points above.
+#define RSBA_RESIDUAL_ENTRY(NAME, T)                                           \
+  extern "C" int NAME(const T* win, const T* pts, const T* uv, const T* tt,   \
+                      const T* mask, const int* offs, const T* rsf,           \
+                      const T* intr, const T* rho_ref, int NR, int W, int L,  \
+                      int G, int rolling_shutter, int interp,                 \
+                      int use_distortion, int loss_kind,                      \
+                      double projection_sign, double loss_scale, T* rho,      \
+                      T* dec, int threads, int rows_per_block,                \
+                      int smem_bytes, void* stream) {                         \
+    rsba::RArgs<T> a{win, pts, uv, tt, mask, offs, rsf, intr, rho_ref, NR, W, \
+                     L, G, use_distortion, loss_kind, (T)projection_sign,     \
+                     (T)loss_scale, rho, dec};                                \
+    return rsba::dispatch_residual<T>(a, rolling_shutter, interp, threads,    \
+                                      rows_per_block, smem_bytes, stream);    \
+  }
+RSBA_RESIDUAL_ENTRY(rsba_residual_pass_f32, float)
+RSBA_RESIDUAL_ENTRY(rsba_residual_pass_f64, double)

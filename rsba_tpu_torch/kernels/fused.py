@@ -31,6 +31,17 @@ and keeps the row's (W, 18, columns) tile of F in shared memory.
 shape: the whole row where it has at most 128 columns and its tile fits,
 else the same kernel walks the row in column chunks.  It is one kernel
 for every shape; a shape it cannot take raises.
+
+The residual pass, ``residual_pass``, is the second kernel of the same
+source: on a candidate's parameters it computes every slot's robust cost
+ρ (NR, L, G), 0 on padded slots, and the pairwise decrease
+½ Σ_valid (ρ_ref − ρ) against the loop-carried ρ_ref, from the fused
+kernel's inputs less ``ptf``.  ``residual_pass_cuda`` launches it on CUDA
+tensors and raises on any other, ``residual_pass_reference`` is its plain
+version (``camera.project`` and the loss on the kernel's layout), and
+``residual_pass`` picks between them by device as
+``fused_evaluate_assemble`` does.  ``residual_plan`` chooses the rows a
+block and its threads from the shape.
 """
 from __future__ import annotations
 
@@ -274,6 +285,8 @@ def _check(win, pts, ptf, uv, tt, mask, offs, rsf, intr):
            "mask": mask, "offs": offs, "rsf": rsf, "intr": intr}
     for k, shape in want.items():
         x = got[k]
+        if x is None and k == "ptf":      # the residual pass takes none
+            continue
         if tuple(x.shape) != shape:
             raise ValueError(f"{k}: shape {tuple(x.shape)}, want {shape}")
         if x.device != win.device:
@@ -360,3 +373,164 @@ def fused_evaluate_assemble(win, pts, ptf, uv, tt, mask, offs, rsf, intr,
             else fused_evaluate_assemble_cuda)
     return impl(win, pts, ptf, uv, tt, mask, offs, rsf, intr, model=model,
                 loss=loss)
+
+
+# --- the residual pass ------------------------------------------------------
+
+#: streaming multiprocessors of an H100 SXM
+SMS = 132
+RESIDUAL_MAX_THREADS = 256
+#: shared memory a residual block may take without opting in (bytes)
+RESIDUAL_SMEM_BLOCK = 48 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualPlan:
+    """How the residual kernel covers the grid."""
+    threads: int         # per block
+    rows_per_block: int  # consecutive rows a block takes
+    blocks: int
+    smem_bytes: int      # the rows' prologues and one partial a thread
+
+
+def residual_smem_bytes(W: int, rows: int, threads: int,
+                        itemsize: int) -> int:
+    """A residual block's shared memory (``residual_smem_values`` of the
+    CUDA source)."""
+    return (_round4(rows * W * _PRO_VALUES) + threads) * itemsize
+
+
+def residual_plan(NR: int, W: int, G: int, itemsize: int) -> ResidualPlan:
+    """Rows a block and threads for an (NR, ·, G) grid of W-pose windows.
+
+    A block takes R consecutive rows and a thread one column of one of
+    them (R·G columns rounded up to whole warps); a row wider than
+    ``RESIDUAL_MAX_THREADS`` columns takes a block of its own, whose
+    threads walk its columns.  Of the R whose prologues fit
+    ``RESIDUAL_SMEM_BLOCK`` and that leave at least four blocks an SM (or
+    NR blocks, on a smaller grid), it takes the one with the fewest idle
+    lanes, the larger on a tie.
+    """
+    def plan(rows, threads):
+        return ResidualPlan(threads, rows, -(-NR // rows),
+                            residual_smem_bytes(W, rows, threads, itemsize))
+
+    if G > RESIDUAL_MAX_THREADS:
+        return plan(1, RESIDUAL_MAX_THREADS)
+    want_blocks = min(4 * SMS, NR)
+    best, best_key = None, None
+    for rows in range(1, RESIDUAL_MAX_THREADS // G + 1):
+        threads = -(-rows * G // 32) * 32
+        p = plan(rows, threads)
+        if rows > 1 and (p.smem_bytes > RESIDUAL_SMEM_BLOCK
+                         or p.blocks < want_blocks):
+            continue
+        key = ((threads - rows * G) / threads, -rows)
+        if best_key is None or key < best_key:
+            best, best_key = p, key
+    return best
+
+
+def residual_pass_reference(win, pts, uv, tt, mask, offs, rsf, intr,
+                            rho_ref, *, model: CameraModel, loss: Loss):
+    """Plain PyTorch version: (ρ (NR, L, G), ½ Σ_valid (ρ_ref − ρ)) on the
+    kernel's layout; ``rho_ref`` None counts as zeros."""
+    NR = win.shape[0]
+    offs_a = offs.long()                                 # (NR, L, G)
+    offs_b = offs_a + rsf.long()
+    rows = torch.arange(NR, device=win.device)[:, None, None]
+    sa = win[rows, offs_a]                               # (NR, L, G, 8)
+    sb = win[rows, offs_b]
+    X = pts.transpose(1, 2)[:, None]                     # (NR, 1, G, 3)
+    proj = camera.project(sa[..., :4], sa[..., 4:7], sb[..., :4],
+                          sb[..., 4:7], intr, X, tt, model)
+    r = proj - uv.permute(0, 2, 3, 1)
+    rho, _, _ = loss.evaluate(torch.sum(r * r, dim=-1))
+    # Selection, not multiplication: a padded slot's sentinel point can
+    # project to 0/0.
+    valid = mask > 0
+    rho = torch.where(valid, rho, 0.0)
+    ref = rho.new_zeros(()) if rho_ref is None else rho_ref
+    return rho, 0.5 * torch.sum(torch.where(valid, ref - rho, 0.0))
+
+
+def _check_residual(win, pts, uv, tt, mask, offs, rsf, intr, rho_ref):
+    NR, W, L, G = _check(win, pts, None, uv, tt, mask, offs, rsf, intr)
+    if rho_ref is not None and (
+            tuple(rho_ref.shape) != (NR, L, G)
+            or rho_ref.device != win.device or rho_ref.dtype != win.dtype
+            or not rho_ref.is_contiguous()):
+        raise ValueError(f"rho_ref: {tuple(rho_ref.shape)} {rho_ref.dtype} "
+                         f"on {rho_ref.device}, want a contiguous "
+                         f"{(NR, L, G)} {win.dtype} on {win.device}")
+    return NR, W, L, G
+
+
+def _bind_residual(lib, stream: int, win, pts, uv, tt, mask, offs, rsf,
+                   intr, rho_ref, model: CameraModel, loss: Loss):
+    """As ``_bind``, for the residual pass: returns ``(launch, out)`` with
+    ``out`` holding ``rho`` (NR, L, G) and ``dec`` (NR) row partials."""
+    NR, W, L, G = _check_residual(win, pts, uv, tt, mask, offs, rsf, intr,
+                                  rho_ref)
+    plan = residual_plan(NR, W, G, win.element_size())
+    tail = [plan.threads, plan.rows_per_block, plan.smem_bytes]
+    fn = (lib.rsba_residual_pass_f32 if win.dtype == torch.float32
+          else lib.rsba_residual_pass_f64)
+    P = ctypes.c_void_p
+    fn.argtypes = ([P] * 9 + [ctypes.c_int] * 8 + [ctypes.c_double] * 2
+                   + [P] * 2 + [ctypes.c_int] * len(tail) + [P])
+    fn.restype = ctypes.c_int
+    out = {"rho": torch.empty((NR, L, G), dtype=win.dtype,
+                              device=win.device),
+           "dec": torch.empty((NR,), dtype=win.dtype, device=win.device)}
+    args = [*(x.data_ptr() for x in (win, pts, uv, tt, mask, offs, rsf,
+                                     intr)),
+            None if rho_ref is None else rho_ref.data_ptr(),
+            NR, W, L, G, int(model.rolling_shutter),
+            _INTERP[model.rotation_interp], int(model.use_distortion),
+            _LOSS[loss.kind], float(model.projection_sign),
+            float(loss.scale), out["rho"].data_ptr(), out["dec"].data_ptr(),
+            *tail, stream]
+    return (lambda: fn(*args)), out
+
+
+def _run_residual(lib, stream: int, *inputs_model_loss) -> dict:
+    """One run of the library's residual pass on the inputs of
+    ``_bind_residual``; raises if the entry point returns an error."""
+    launch, out = _bind_residual(lib, stream, *inputs_model_loss)
+    rc = launch()
+    if rc != 0:
+        raise RuntimeError(f"residual pass launch failed: error {rc}")
+    return out
+
+
+def residual_pass_cuda(win, pts, uv, tt, mask, offs, rsf, intr, rho_ref,
+                       *, model: CameraModel, loss: Loss):
+    """Launch the CUDA residual pass; raises unless the tensors are on
+    CUDA.  Returns (ρ, decrease), the decrease the NR row partials summed
+    in a fixed order."""
+    if win.device.type != "cuda":
+        raise RuntimeError(
+            f"the residual CUDA kernel needs CUDA tensors, got {win.device}")
+    from .build import load
+    out = _run_residual(load("fused_evaluate_assemble").lib,
+                        torch.cuda.current_stream(win.device).cuda_stream,
+                        win, pts, uv, tt, mask, offs, rsf, intr, rho_ref,
+                        model, loss)
+    residual_pass_cuda.launches += 1
+    return out["rho"], out["dec"].sum()
+
+
+#: launches of the CUDA residual pass since the last reset (set it to 0 to
+#: reset)
+residual_pass_cuda.launches = 0
+
+
+def residual_pass(win, pts, uv, tt, mask, offs, rsf, intr, rho_ref, *,
+                  model: CameraModel, loss: Loss):
+    """The residual kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    impl = (residual_pass_reference if win.device.type == "cpu"
+            else residual_pass_cuda)
+    return impl(win, pts, uv, tt, mask, offs, rsf, intr, rho_ref,
+                model=model, loss=loss)

@@ -11,11 +11,15 @@ layout, where per-point quantities carry the point axis G last:
     g_pt (NR, 3, G),  C (NR, 6, G) packed symmetric,  F (NR, W, 18, G)
 
 Internal parameter layout: points as (NR, 3, G) planes.  The pairwise
-cost decrease always differences two passes of the same plain residual
-path (``banded.residuals_raw``), never the kernel against it; the
-on-device loop carries the per-slot ρ of the accepted parameters
-(``rho_slots``), so an attempt costs one residual pass
-(``cost_decrease_pair``).
+cost decrease always differences two passes of the same residual
+evaluator, never the fused kernel against it: the on-device loop carries
+the per-slot ρ of the accepted parameters (``rho_slots``, in the kernel
+statics' (NR, L, G) layout), so an attempt costs one residual pass
+(``cost_decrease_pair``), and both go through ``kernels/fused.py``'s
+``residual_pass`` (on CUDA tensors one launch of the residual kernel in
+``csrc/fused_evaluate_assemble.cu``, which shares the fused kernel's
+prologue, projection and loss).  The host loop's ``cost_decrease`` and
+``cost`` keep the plain residual path of ``banded``.
 """
 from __future__ import annotations
 
@@ -224,25 +228,33 @@ def prepare(plan: WindowPlan, problem: Problem, options: SolverOptions,
     return scale_system(plan, options, parts, gmax)
 
 
-def rho_slots(plan: WindowPlan, problem: Problem, params: Params):
-    """Per-slot robust costs ρ (NR, G, L) from the plain residual path.
+def _residual_pass(plan: WindowPlan, problem: Problem, params: Params,
+                   statics: KernelStatics, rho_ref, residual):
+    win, pts, _, *rest = kernel_inputs(params, plan, problem, statics)
+    return residual(win, pts, *rest, rho_ref, model=problem.model,
+                    loss=problem.loss)
+
+
+def rho_slots(plan: WindowPlan, problem: Problem, params: Params,
+              statics: KernelStatics, residual=fused.residual_pass):
+    """Per-slot robust costs ρ (NR, L, G), 0 on padded slots, from
+    ``residual`` (one of the kernels/fused.py residual entry points).
 
     Both sides of a pairwise cost decrease must come from the same
-    evaluator: the kernel and the plain path differ by round-off per slot,
-    which near convergence is the order of function_tolerance·cost.  The
-    on-device loop seeds ρ_ref here once per block and carries the
-    accepted candidate's ρ forward."""
-    return banded._rho(banded.residuals_raw(_as_v1(params), plan, problem),
-                       problem.loss)
+    evaluator: two evaluators differ by round-off per slot, which near
+    convergence is the order of function_tolerance·cost.  The on-device
+    loop seeds ρ_ref here once per block and carries the accepted
+    candidate's ρ forward."""
+    return _residual_pass(plan, problem, params, statics, None, residual)[0]
 
 
 def cost_decrease_pair(plan: WindowPlan, problem: Problem, rho_ref,
-                       cand: Params):
-    """(Σ (ρ_ref − ρ_new)/2, ρ_new): one residual pass on the candidate;
+                       cand: Params, statics: KernelStatics,
+                       residual=fused.residual_pass):
+    """(½ Σ (ρ_ref − ρ_new), ρ_new): one residual pass on the candidate;
     ρ_ref is the loop-carried ρ of the current parameters."""
-    rho_new = rho_slots(plan, problem, cand)
-    decrease = 0.5 * torch.sum(
-        torch.where(plan.mask > 0, rho_ref - rho_new, 0.0))
+    rho_new, decrease = _residual_pass(plan, problem, cand, statics,
+                                       rho_ref, residual)
     return decrease, rho_new
 
 
@@ -371,16 +383,24 @@ def pick_evaluator(options: SolverOptions, device: torch.device):
                           and device.type != "cpu"))
 
 
+#: the residual pass that goes with each ``options.evaluator``
+RESIDUAL_PASS = {"auto": fused.residual_pass,
+                 "cuda": fused.residual_pass_cuda,
+                 "torch": fused.residual_pass_reference}
+
+
 def make_fused_solver_fns(problem: Problem, plan: WindowPlan,
                           options: SolverOptions) -> dict:
     """Phase functions for ``lm.solve``: fused prepare + planes solve_step.
 
     ``options.evaluator`` picks the prepare's evaluator
-    (``pick_evaluator``).
+    (``pick_evaluator``) and the on-device loop's residual pass
+    (``RESIDUAL_PASS``).
     """
     from .lm import inlier_threshold
     thresh = inlier_threshold(problem)
     evaluate, use_kernel = pick_evaluator(options, problem.device)
+    residual = RESIDUAL_PASS[options.evaluator]
     statics = kernel_statics(plan, problem)
     ptf = statics.ptf
     # Phase closures for the on-device loop (lm_device.py); ``bound`` is
@@ -394,9 +414,10 @@ def make_fused_solver_fns(problem: Problem, plan: WindowPlan,
         "apply_step": lambda b, p, dx: apply_step(b[0], b[1], p, dx, ptf),
         "cost_decrease": lambda b, po, pn: banded.cost_decrease(
             b[0], b[1], _as_v1(po), _as_v1(pn)),
-        "rho_slots": lambda b, p: rho_slots(b[0], b[1], p),
+        "rho_slots": lambda b, p: rho_slots(b[0], b[1], p, statics,
+                                            residual),
         "cost_decrease_pair": lambda b, rho_ref, pn: cost_decrease_pair(
-            b[0], b[1], rho_ref, pn),
+            b[0], b[1], rho_ref, pn, statics, residual),
     }
     return {
         "raw": raw,

@@ -139,24 +139,30 @@ def _tree_map(fn, tree):
 
 
 def _select_into(cond: torch.Tensor, new, static) -> None:
-    """static ← where(cond, new, static), leaf by leaf, in place."""
+    """static ← where(cond, new, static), leaf by leaf, in place (one
+    pass a leaf: ``where`` writes into ``static`` itself)."""
     for dst, src in zip(_leaves(static), _leaves(new)):
-        dst.copy_(torch.where(cond, src, dst))
+        torch.where(cond, src, dst, out=dst)
 
 
 def _tree_finite(tree) -> torch.Tensor:
-    ok = None
+    """Whether every entry of the tree's tensors is finite (0-dim bool):
+    x·0 is 0 for a finite x and NaN for ±inf or NaN, and a sum of zeros
+    is exactly 0, so two launches a leaf say what ``isfinite().all()``
+    says in four."""
+    total = None
     for leaf in _leaves(tree):
-        fin = torch.isfinite(leaf).all()
-        ok = fin if ok is None else torch.logical_and(ok, fin)
-    return ok
+        z = (leaf * 0).sum()
+        total = z if total is None else total + z
+    return total == 0
 
 
 def _kernel_counters() -> tuple:
     """The wrappers of the package's CUDA kernels, whose ``launches`` a
     graph replay adds to."""
     from ..kernels import band_pcg, fused
-    return (fused.fused_evaluate_assemble_cuda, band_pcg.band_pcg_cuda)
+    return (fused.fused_evaluate_assemble_cuda, band_pcg.band_pcg_cuda,
+            fused.residual_pass_cuda)
 
 
 class _Runner:
@@ -269,20 +275,20 @@ class _Runner:
         df = torch.where(accept, 2.0, s.df * 2.0)
         inv = torch.where(valid, 0, s.inv + 1)
 
-        # Termination (first set wins; all gated on still running).
-        term = s.term
-        term = torch.where((term == 0) & ~valid
-                           & (inv > o.max_invalid_steps),
-                           TERM_FAIL_INVALID, term)
+        # Termination: the first code whose condition holds, where the
+        # loop is still running.
+        reject = ~accept
         small = (s.cost - new_cost).abs() <= ftol * s.cost
-        stagnant = valid & ~accept & (predicted <= ftol * s.cost) & small
-        term = torch.where((term == 0) & stagnant, TERM_FTOL_STAGNANT, term)
-        term = torch.where((term == 0) & accept & small, TERM_FTOL, term)
-        term = torch.where((term == 0) & accept
-                           & (step_norm <= ptol * (x_norm + ptol)),
-                           TERM_PTOL, term)
-        term = torch.where((term == 0) & ~accept & (radius < o.min_radius),
-                           TERM_RADIUS, term)
+        stagnant = valid & reject & (predicted <= ftol * s.cost) & small
+        first = torch.where(reject & (radius < o.min_radius), TERM_RADIUS,
+                            s.term)
+        first = torch.where(accept & (step_norm <= ptol * (x_norm + ptol)),
+                            TERM_PTOL, first)
+        first = torch.where(accept & small, TERM_FTOL, first)
+        first = torch.where(stagnant, TERM_FTOL_STAGNANT, first)
+        first = torch.where(~valid & (inv > o.max_invalid_steps),
+                            TERM_FAIL_INVALID, first)
+        term = torch.where(live, first, s.term)
 
         # Record (valid attempts only, as the host loop writes them).
         rec = torch.stack([
@@ -292,7 +298,6 @@ class _Runner:
             accept.to(dtype), li.to(dtype)])
         row = torch.arange(self.block_attempts, device=rec.device)
         write = (row == s.n_rec) & valid & live
-        records = torch.where(write[:, None], rec[None, :], s.records)
 
         # A re-prepare follows an accepted step (new parameters) or an
         # invalid one (the host loop breaks to its outer iteration, which
@@ -307,12 +312,12 @@ class _Runner:
         _select_into(taken, cand, s.params)
         if self.pair:
             _select_into(taken, rho_new, s.rho_ref)
-        s.cost.copy_(torch.where(taken, new_cost, s.cost))
-        s.radius.copy_(torch.where(live, radius, s.radius))
-        s.df.copy_(torch.where(live, df, s.df))
-        s.inv.copy_(torch.where(live, inv, s.inv))
-        s.term.copy_(torch.where(live, term, s.term))
-        s.records.copy_(records)
+        torch.where(taken, new_cost, s.cost, out=s.cost)
+        torch.where(live, radius, s.radius, out=s.radius)
+        torch.where(live, df, s.df, out=s.df)
+        torch.where(live, inv, s.inv, out=s.inv)
+        s.term.copy_(term)
+        torch.where(write[:, None], rec[None, :], s.records, out=s.records)
         s.n_rec.add_((valid & live).to(torch.int32))
         s.run_prep.copy_(run_prep)
         s.flags.copy_(torch.stack([s.term, run_prep.to(torch.int32)]))
@@ -326,10 +331,9 @@ class _Runner:
         cost, gmax, term = self._prep_checks(
             aux, torch.ones((), dtype=torch.bool, device=s.cost.device))
         _select_into(run, aux, s.aux)
-        s.cost.copy_(torch.where(run, cost, s.cost))
-        s.gmax.copy_(torch.where(run, gmax, s.gmax))
-        s.term.copy_(torch.where(run & (s.term == TERM_RUNNING), term,
-                                 s.term))
+        torch.where(run, cost, s.cost, out=s.cost)
+        torch.where(run, gmax, s.gmax, out=s.gmax)
+        torch.where(run & (s.term == TERM_RUNNING), term, s.term, out=s.term)
         s.n_outer.add_(run.to(torch.int32))
         s.run_prep.fill_(False)
         s.flags.copy_(torch.stack([s.term, torch.zeros_like(s.term)]))

@@ -16,10 +16,11 @@ There is no compiler cost model to ask, so the counts are computed from
 shapes, for the parts that carry a phase of the banded engine: the fused
 evaluate+assemble kernel (``kernel_bound``, ``slot_flops``) for prepare;
 the F C⁻¹ Fᵀ batched product and the PCG's band products for solve_step
-(``solve_step_counts``); the band PCG kernel's bytes
-(``band_pcg_bound``).  The element-wise work around them is not
-counted, so a phase's utilisation is a lower bound; a phase of an engine
-with no count here reports its time and ``"flops": None, "bytes": None``.
+(``solve_step_counts``); the band PCG kernel's bytes (``band_pcg_bound``)
+and the residual pass's (``residual_pass_bound``).  The element-wise
+work around them is not counted, so a phase's utilisation is a lower
+bound; a phase of an engine with no count here reports its time and
+``"flops": None, "bytes": None``.
 
 Peaks are the published ones of one NVIDIA H100 SXM: 3.35 TB/s of device
 memory and 67 TFLOP/s in float32 outside the tensor cores (every counted
@@ -121,6 +122,23 @@ def band_pcg_bound(P: int, W: int, itemsize: int, live_passes: int) -> dict:
     per_pass = itemsize * P * (6 * 6 * (2 * W - 1) + 36 + 4 * 6)
     return {"bytes_per_pass": per_pass, "live_passes": live_passes,
             "bound_ms": live_passes * per_pass / peak_bw * 1e3}
+
+
+def residual_pass_bound(NR: int, L: int, G: int, itemsize: int,
+                        W: int = 0) -> dict:
+    """The time of one residual pass (``kernels/fused.py::residual_pass``)
+    over an (NR, L, G) grid at the HBM rate: a slot reads uv (2 values),
+    t, mask, rsf and ρ_ref and the int32 offset and writes ρ (32 B in
+    float32); the point planes (NR, 3, G) are read once and, with ``W``,
+    the pose windows (NR, W, 8).  The arithmetic (a few hundred FLOP a
+    valid slot) is well under it."""
+    _, peak_bw = peaks()
+    slots = NR * L * G
+    slot_bytes = slots * (7 * itemsize + 4)
+    other = itemsize * NR * (3 * G + 8 * W + 1)
+    total = slot_bytes + other
+    return {"slots": slots, "slot_bytes": slot_bytes, "bytes": total,
+            "bound_ms": total / peak_bw * 1e3}
 
 
 def _banded_counts(fns: dict, p, options=None):

@@ -129,8 +129,9 @@ def test_graph_replay_counts_its_launch():
     fns = make_solver_fns(ba.problem, opts)
     solve(ba.problem, ba.params0, opts, fns=fns)
     (runner,) = fns["_device_runners"].values()
-    assert runner.kernel_nodes[0] == (0, 1)     # fused, band PCG
-    assert runner.kernel_nodes[1] == (1, 0)
+    # fused, band PCG, residual pass
+    assert runner.kernel_nodes[0] == (0, 1, 1)
+    assert runner.kernel_nodes[1] == (1, 0, 0)
 
     attempts = [0]
     real = lm_device._Runner.attempt
