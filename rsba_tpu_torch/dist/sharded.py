@@ -30,7 +30,7 @@ from ..solver import assembly, flatplan, residuals
 from ..solver.lm import inlier_threshold
 from ..solver.options import SolverOptions
 from ..solver.pcg import (SchurFreeOperator, _jacobi_apply, add_lm_diag,
-                          make_block_preconditioner, pcg,
+                          make_block_preconditioner, obs_index, pcg,
                           schur_jacobi_partial)
 from ..solver.schur import (_lm_scaled_damp, assemble_B, assemble_E,
                             gn_hessian_apply, invert_3x3_psd, jacobi_scales,
@@ -60,6 +60,7 @@ def make_sharded_solver_fns(problem: Problem, options: SolverOptions,
         point=block.obs.point - mesh.rank * m_local))
     shapes = assembly.static_shapes(prob)
     plans = flatplan.build_flat_plans(prob, pairs=not use_pcg)
+    index = obs_index(prob, shapes)
     p6 = shapes.n_poses * POSE_DOF
     thresh = inlier_threshold(problem)
 
@@ -124,7 +125,7 @@ def make_sharded_solver_fns(problem: Problem, options: SolverOptions,
         # (B − E C⁻¹ Eᵀ)·p; the diagonal is added once, after the sum.
         op = SchurFreeOperator(ev=ev, problem=prob, shapes=shapes,
                                lm_cam=torch.zeros_like(lm_cam), C_inv=C_inv,
-                               plans=plans)
+                               plans=plans, index=index)
         b = -g_cam - mesh.psum(
             op.e_apply(torch.einsum("mab,mb->ma", C_inv, -g_pt)))[0]
 

@@ -129,6 +129,18 @@ def _flat_sizes(problem: Problem, linear_solver: str) -> dict:
             "pairs": int(pairs.numel()), "e_bytes": e_bytes}
 
 
+def _pass_sizes(problem: Problem) -> dict:
+    """What a pass of the matrix-free reduced camera system reads, for the
+    ``solve`` span of an ``iterative_schur`` solve: the observation axis's
+    length ``N`` (padding included), the points ``M``, the poses ``P``,
+    the intrinsics blocks ``n_intr``, their tangent width ``ni`` and the
+    ``itemsize`` of a value."""
+    shapes = assembly.static_shapes(problem)
+    return {"N": int(problem.obs.uv.shape[0]), "M": shapes.n_points,
+            "P": shapes.n_poses, "n_intr": shapes.n_intr, "ni": shapes.ni,
+            "itemsize": problem.obs.uv.element_size()}
+
+
 def _flat_fns(problem: Problem, options: SolverOptions, prepare, solve_step,
               engine) -> dict:
     """Shared phase-fn dict for the flat-layout engines (dense /
@@ -212,7 +224,9 @@ def solve(problem: Problem, params: Params,
     (``rebindable``) comes from the process's cache
     (``lm_device.engines``), which reuses an engine and its captured
     graphs for every problem of the same structure; the ``solve`` span's
-    ``engine_cache`` says "hit", "miss" or "bypass" (not cached).
+    ``engine_cache`` says "hit", "miss" or "bypass" (not cached), and
+    that of an ``iterative_schur`` solve also carries the sizes that a
+    pass of its PCG reads (``_pass_sizes``).
     ``summary`` continues an existing Summary, so that a record stream
     can span restarts.
 
@@ -258,6 +272,8 @@ def _solve(problem, params, options, callback, fns, summary, sp):
         fns = make_solver_fns(problem, options)
     sp.set(engine_cache=cached)
     engine = fns.get("engine", (options.linear_solver, ""))
+    if engine[0] == "iterative_schur" and trace.enabled():
+        sp.set(**_pass_sizes(problem))
     if summary is None:
         summary = Summary()
     summary.linear_solver, summary.evaluator = engine
